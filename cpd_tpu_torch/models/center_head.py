@@ -1,0 +1,99 @@
+"""CenterHead RPN, inference half (port of cpd_tpu/models/center_head.py):
+shared conv, separate prediction heads, top-K decode + proposal NMS."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from ..ops import gaussian, nms
+from .bev import conv2d
+from .norm import BatchNorm2d
+
+
+class _Conv(nn.Module):
+    """Holder of a 3x3 conv's weight (Cout, Cin, 3, 3) and bias."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_channels, in_channels, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+
+class SeparateHead(nn.Module):
+    """(num_conv - 1) x [3x3 conv + BN + ReLU] in compute_dtype, then an f32
+    3x3 output conv. NCHW in, NCHW f32 out."""
+
+    def __init__(self, head_channels: int, out_channels: int, num_conv: int = 2,
+                 compute_dtype=torch.bfloat16):
+        super().__init__()
+        self.num_conv = num_conv
+        self.compute_dtype = compute_dtype
+        for i in range(num_conv - 1):
+            self.add_module(f"conv{i}", _Conv(head_channels, head_channels))
+            self.add_module(f"bn{i}", BatchNorm2d(head_channels))
+        self.out = _Conv(head_channels, out_channels)
+
+    def forward(self, x):
+        for i in range(self.num_conv - 1):
+            conv = getattr(self, f"conv{i}")
+            x = conv2d(x, conv.weight, conv.bias, 1, 1, self.compute_dtype)
+            x = torch.relu(getattr(self, f"bn{i}")(x))
+        return conv2d(x.float(), self.out.weight, self.out.bias, 1, 1)
+
+
+class CenterHead(nn.Module):
+    def __init__(self, in_channels: int, num_classes: int, shared_conv_channel: int = 64,
+                 num_hm_conv: int = 2,
+                 head_order: Tuple[str, ...] = ("center", "center_z", "dim", "rot"),
+                 head_dims: Tuple[int, ...] = (2, 1, 3, 2),
+                 voxel_size=(0.1, 0.1, 0.15),
+                 point_cloud_range=(-75.2, -75.2, -2.0, 75.2, 75.2, 4.0),
+                 feature_map_stride: int = 8, compute_dtype=torch.bfloat16):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.head_order = tuple(head_order)
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.feature_map_stride = feature_map_stride
+        self.shared_conv = _Conv(in_channels, shared_conv_channel)
+        self.shared_bn = BatchNorm2d(shared_conv_channel)
+        self.head_hm = SeparateHead(shared_conv_channel, num_classes, num_hm_conv,
+                                    compute_dtype)
+        for name, dim in zip(head_order, head_dims):
+            self.add_module(f"head_{name}",
+                            SeparateHead(shared_conv_channel, dim, 2, compute_dtype))
+
+    def forward(self, bev_features):
+        """(B, H, W, C) NHWC -> dict of NHWC f32 prediction maps."""
+        x = bev_features.permute(0, 3, 1, 2)
+        x = conv2d(x, self.shared_conv.weight, self.shared_conv.bias, 1, 1,
+                   self.compute_dtype)
+        x = torch.relu(self.shared_bn(x))
+        names = ("hm",) + self.head_order
+        return {n: getattr(self, f"head_{n}")(x).permute(0, 2, 3, 1) for n in names}
+
+    def generate_predicted_boxes(self, preds, k=500, score_thresh=0.1, nms_cfg=None,
+                                 post_max_size=500):
+        """Decode top-K + class-agnostic NMS -> fixed-size rois per sample:
+        rois (B, post, 7), roi_scores, roi_labels (1-based int32), roi_valid."""
+        hm = torch.sigmoid(preds["hm"].permute(0, 3, 1, 2))
+        maps = [preds[n].permute(0, 3, 1, 2) for n in ("center", "center_z", "dim", "rot")]
+        outs = []
+        for i in range(hm.shape[0]):
+            boxes, scores, labels, valid = gaussian.decode_bbox_from_heatmap(
+                hm[i], *(m[i] for m in maps), self.voxel_size, self.point_cloud_range,
+                self.feature_map_stride, k=k, score_thresh=score_thresh,
+                post_center_limit_range=self.point_cloud_range)
+            if nms_cfg is not None:
+                idx, valid = nms.nms_bev(
+                    boxes, scores, thresh=nms_cfg["NMS_THRESH"],
+                    pre_max_size=min(int(nms_cfg["NMS_PRE_MAXSIZE"]), k),
+                    post_max_size=min(int(nms_cfg["NMS_POST_MAXSIZE"]), post_max_size),
+                    valid=valid, fast=bool(nms_cfg.get("USE_FAST_NMS", True)))
+                boxes, scores, labels = boxes[idx], scores[idx], labels[idx]
+            outs.append((boxes, scores, (labels + 1).to(torch.int32), valid))
+        rois, roi_scores, roi_labels, roi_valid = (torch.stack(t) for t in zip(*outs))
+        return {"rois": rois, "roi_scores": roi_scores, "roi_labels": roi_labels,
+                "roi_valid": roi_valid}

@@ -1,0 +1,116 @@
+"""RoI grid pooling primitives: grid points, voxel query, group-and-pool
+(port of cpd_tpu/ops/pool.py)."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .geometry import rotate_points_along_z
+from .sparse import GridSpec, lookup
+
+
+def roi_grid_points(rois, grid_size: int):
+    """(N, 7+) rois -> (N, grid_size^3, 3) world xyz of the dense RoI grid."""
+    g = grid_size
+    idx = torch.arange(g, dtype=torch.float32, device=rois.device)
+    zz, yy, xx = torch.meshgrid(idx, idx, idx, indexing="ij")
+    unit = torch.stack([xx, yy, zz], dim=-1).reshape(-1, 3)
+    local = (unit + 0.5) / g - 0.5
+    pts = local[None, :, :] * rois[:, None, 3:6]
+    pts = rotate_points_along_z(pts, rois[:, 6])
+    return pts + rois[:, None, 0:3]
+
+
+def _taps_for_radius_list(query_range: Tuple[int, int, int], voxel_size_eff,
+                          radius: float, max_taps: int = 135):
+    """Every (dz, dy, dx) offset whose nearest point to a query anywhere in
+    its own cell lies within ``radius``, ordered by nominal center distance
+    (ties lexicographic), truncated to ``max_taps``."""
+    rz, ry, rx = query_range
+    vsx, vsy, vsz = (float(v) for v in voxel_size_eff)
+    offs = []
+    for dz in range(-rz, rz + 1):
+        for dy in range(-ry, ry + 1):
+            for dx in range(-rx, rx + 1):
+                md2 = ((max(abs(dx) - 0.5, 0.0) * vsx) ** 2
+                       + (max(abs(dy) - 0.5, 0.0) * vsy) ** 2
+                       + (max(abs(dz) - 0.5, 0.0) * vsz) ** 2)
+                if md2 <= radius * radius + 1e-9:
+                    offs.append((dz, dy, dx))
+    offs.sort(key=lambda o: ((o[0] * vsz) ** 2 + (o[1] * vsy) ** 2 + (o[2] * vsx) ** 2, o))
+    return offs[:max_taps]
+
+
+def voxel_query_multi(query_xyz, voxel_keys, grid: GridSpec, voxel_size, point_cloud_range,
+                      downsample: int, query_range: Tuple[int, int, int],
+                      radii: Tuple[float, ...], nsample: int, max_taps: int = 135):
+    """Multi-radius voxel query: for each query point and radius, the first
+    ``nsample`` occupied voxels within the radius in tap order.
+
+    The union tap list is in nested-prefix order (the smallest radius's taps
+    first, then each larger radius's new ones), so each radius reads a
+    prefix of one shared lookup. query_xyz (Q, 3); voxel_keys (V,) sorted.
+    Returns per radius (idx (Q, nsample) int32, valid (Q, nsample) bool,
+    centers (Q, nsample, 3)); unfilled slots have idx 0, valid False and the
+    center of tap 0.
+    """
+    dev = query_xyz.device
+    vs = torch.tensor(voxel_size, dtype=torch.float32, device=dev) * downsample
+    pcr = torch.tensor(point_cloud_range[:3], dtype=torch.float32, device=dev)
+    qc = torch.floor((query_xyz - pcr) / vs).to(torch.int64)  # (Q, 3) xyz
+    vs_eff = tuple(float(x) * downsample for x in voxel_size)
+    union_list, prefix_len = [], {}
+    for rr in sorted(set(radii)):
+        for o in _taps_for_radius_list(query_range, vs_eff, rr, max_taps):
+            if o not in union_list and len(union_list) < max_taps:
+                union_list.append(o)
+        prefix_len[rr] = len(union_list)
+    offs = torch.tensor(union_list, dtype=torch.int64, device=dev)  # (W, 3) zyx
+    nx_c = qc[None, :, 0] + offs[:, None, 2]  # (W, Q)
+    ny_c = qc[None, :, 1] + offs[:, None, 1]
+    nz_c = qc[None, :, 2] + offs[:, None, 0]
+    # a query outside the grid finds nothing (its own cell has no key)
+    in_grid = ((qc[:, 0] >= 0) & (qc[:, 0] < grid.nx) & (qc[:, 1] >= 0)
+               & (qc[:, 1] < grid.ny) & (qc[:, 2] >= 0) & (qc[:, 2] < grid.nz))
+    idx_all, found_all = lookup(voxel_keys, nz_c, ny_c, nx_c, grid,
+                                in_grid[None, :].expand_as(nx_c))
+    dxc = (nx_c.to(torch.float32) + 0.5) * vs[0] + pcr[0] - query_xyz[None, :, 0]
+    dyc = (ny_c.to(torch.float32) + 0.5) * vs[1] + pcr[1] - query_xyz[None, :, 1]
+    dzc = (nz_c.to(torch.float32) + 0.5) * vs[2] + pcr[2] - query_xyz[None, :, 2]
+    dist2 = dxc * dxc + dyc * dyc + dzc * dzc
+    q_n = query_xyz.shape[0]
+    outs = []
+    for radius in radii:
+        wi = prefix_len[radius]
+        ok = found_all[:wi] & (dist2[:wi] <= radius * radius)
+        slot = torch.cumsum(ok.to(torch.int64), dim=0) - 1
+        # slot nsample is the drop column for taps past the first nsample hits
+        target = torch.where(ok & (slot < nsample), slot, nsample).T  # (Q, wi)
+        taps = torch.arange(wi, device=dev).expand(q_n, wi)
+
+        def place(vals, dtype):
+            out = torch.zeros((q_n, nsample + 1), dtype=dtype, device=dev)
+            return out.scatter_(1, target, vals.to(dtype))[:, :nsample]
+
+        sel_idx = place(idx_all[:wi].T, torch.int32)
+        sel_valid = place(torch.ones_like(target, dtype=torch.bool), torch.bool)
+        tap_ids = place(taps, torch.int64)
+        c_xyz = qc[:, None, :] + offs[tap_ids].flip(-1)  # (Q, nsample, 3) xyz
+        sel_centers = (c_xyz.to(torch.float32) + 0.5) * vs + pcr
+        outs.append((sel_idx, sel_valid, sel_centers))
+    return tuple(outs)
+
+
+def group_and_pool(features, idx, valid, rel_pos, mlp_fn):
+    """Grouping + shared MLP + masked max-pool.
+
+    features (V, C); idx/valid (Q, K); rel_pos (Q, K, 3) query-to-neighbour
+    offsets; mlp_fn: (Q, K, C+3) -> (Q, K, D). Returns (Q, D)."""
+    g = features[idx.long()]
+    g = torch.cat([rel_pos.to(features.dtype), g], dim=-1)
+    g = torch.where(valid[..., None], g, 0.0)
+    h = mlp_fn(g)
+    h = torch.where(valid[..., None], h, -1e9)
+    pooled = h.amax(dim=1)
+    return torch.where(valid.any(dim=1)[:, None], pooled, 0.0)

@@ -1,0 +1,196 @@
+"""Sparse 3D convolution substrate: rulebooks + the gather-GEMM conv (port of
+cpd_tpu/ops/sparse.py).
+
+A sparse tensor is (features (V_cap, C), keys (V_cap,)) with int32
+linearized zyx keys ((z * ny) + y) * nx + x, SORTED ascending, padding slots
+set to INT32_MAX at the end. A row's index is its key's rank, so every
+neighbour lookup is one ``torch.searchsorted`` over the sorted keys: the one
+formulation this port uses (the JAX package's bitmap LUTs, rank-joins and
+gather-mode variants are TPU lowering workarounds).
+
+A ``Rulebook`` holds, per output row and kernel tap, the input row to gather
+(``idx``) and whether it exists (``found``); ``idx`` is 0 where ``found`` is
+False. The conv itself is kernel A1 (``ops/gather_gemm.py``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from .gather_gemm import gather_gemm
+
+INVALID_KEY = 2**31 - 1  # padding sentinel for key arrays
+
+
+class GridSpec(NamedTuple):
+    """Static spatial grid (nx, ny, nz). Keys are ((z * ny) + y) * nx + x."""
+
+    nx: int
+    ny: int
+    nz: int
+
+    @property
+    def num_cells(self) -> int:
+        return self.nx * self.ny * self.nz
+
+    def downsample(self, stride, padding, kernel) -> "GridSpec":
+        """Conv output grid: floor((n + 2p - k) / s) + 1 per dim, (x, y, z) order."""
+        return GridSpec(*((n + 2 * p - k) // s + 1 for n, s, p, k in
+                          zip(self, stride, padding, kernel)))
+
+
+class Rulebook(NamedTuple):
+    """out[v] = sum_k found[v, k] * in[idx[v, k]] @ W[k]."""
+
+    idx: torch.Tensor  # (..., V_out_cap, K) int32 rows of the input table
+    found: torch.Tensor  # (..., V_out_cap, K) bool
+    out_keys: torch.Tensor  # (..., V_out_cap) int32 sorted output keys
+    out_valid: torch.Tensor  # (..., V_out_cap) bool
+
+
+def keys_from_coords(coords_zyx, grid: GridSpec, valid=None):
+    """(..., 3) int zyx -> (...,) int32 keys; out-of-bounds/invalid -> INVALID_KEY."""
+    z, y, x = coords_zyx[..., 0], coords_zyx[..., 1], coords_zyx[..., 2]
+    ok = _in_grid(z, y, x, grid)
+    if valid is not None:
+        ok = ok & valid
+    key = (z.long() * grid.ny + y) * grid.nx + x
+    return torch.where(ok, key, INVALID_KEY).to(torch.int32)
+
+
+def coords_from_keys(keys, grid: GridSpec):
+    """(V,) keys -> (V, 3) zyx (junk rows for INVALID_KEY slots)."""
+    return torch.stack([keys // (grid.nx * grid.ny), (keys // grid.nx) % grid.ny,
+                        keys % grid.nx], dim=-1)
+
+
+def _in_grid(z, y, x, grid: GridSpec):
+    """Per-dimension bounds check, so a neighbour never wraps across a grid row."""
+    return ((x >= 0) & (x < grid.nx) & (y >= 0) & (y < grid.ny)
+            & (z >= 0) & (z < grid.nz))
+
+
+def lookup(sorted_keys, z, y, x, grid: GridSpec, ok):
+    """Rows of the cells (z, y, x) (any equal shapes) in ``sorted_keys``.
+
+    Returns (idx int32, found bool): ``found`` needs the cell in bounds, ``ok``
+    and present; ``idx`` is 0 where not found."""
+    ok = ok & _in_grid(z, y, x, grid)
+    q = torch.where(ok, (z.long() * grid.ny + y) * grid.nx + x, -1)
+    keys64 = sorted_keys.long()
+    idx = torch.searchsorted(keys64, q.reshape(-1)).reshape(q.shape)
+    idx = torch.clamp(idx, max=sorted_keys.shape[0] - 1)
+    found = ok & (keys64[idx] == q)
+    return torch.where(found, idx, 0).to(torch.int32), found
+
+
+def _kernel_offsets(kernel: Tuple[int, int, int]):
+    """(dz, dy, dx) tap offsets from the kernel origin; kernel is (kx, ky, kz)."""
+    kx, ky, kz = kernel
+    return [(dz, dy, dx) for dz in range(kz) for dy in range(ky) for dx in range(kx)]
+
+
+def build_subm_rulebook(keys, grid: GridSpec, kernel=(3, 3, 3)) -> Rulebook:
+    """Submanifold rulebook: output sites == input sites. keys: (V,) sorted."""
+    kx, ky, kz = kernel
+    valid = keys != INVALID_KEY
+    coords = coords_from_keys(keys.long(), grid)
+    offs = torch.tensor([(dz - kz // 2, dy - ky // 2, dx - kx // 2)
+                         for dz, dy, dx in _kernel_offsets(kernel)], device=keys.device)
+    nc = coords[:, None, :] + offs[None, :, :]  # (V, K, 3) zyx
+    idx, found = lookup(keys, nc[..., 0], nc[..., 1], nc[..., 2], grid,
+                        valid[:, None].expand(-1, offs.shape[0]))
+    return Rulebook(idx, found, keys, valid)
+
+
+def _strided_out_keys(keys, grid: GridSpec, out_grid: GridSpec, kernel, stride,
+                      padding, out_cap: int):
+    """SparseConv3d output set: every output site whose receptive field
+    touches an input voxel, sorted ascending and truncated to ``out_cap`` by
+    dropping the highest keys. Enumerates the ceil(k/s) candidate output
+    coords per dim of each input voxel, then one sorted unique."""
+    valid = keys != INVALID_KEY
+    coords = coords_from_keys(keys.long(), grid)
+
+    def dim_candidates(i, k, s, p, out_n):
+        cands = []
+        base = torch.div(i + p, s, rounding_mode="floor")
+        for q in range(-(-k // s)):
+            o = base - q
+            koff = i + p - o * s
+            cands.append((o, (koff >= 0) & (koff < k) & (o >= 0) & (o < out_n)))
+        return cands
+
+    z, y, x = coords[:, 0], coords[:, 1], coords[:, 2]
+    cand = []
+    for oz, okz in dim_candidates(z, kernel[2], stride[2], padding[2], out_grid.nz):
+        for oy, oky in dim_candidates(y, kernel[1], stride[1], padding[1], out_grid.ny):
+            for ox, okx in dim_candidates(x, kernel[0], stride[0], padding[0], out_grid.nx):
+                key = (oz * out_grid.ny + oy) * out_grid.nx + ox
+                cand.append(torch.where(okz & oky & okx & valid, key, INVALID_KEY))
+    uniq = torch.unique(torch.cat(cand))  # sorted ascending; INVALID_KEY last
+    out_keys = torch.full((out_cap,), INVALID_KEY, dtype=torch.int64, device=keys.device)
+    n = min(out_cap, uniq.shape[0])
+    out_keys[:n] = uniq[:n]
+    return out_keys.to(torch.int32), out_keys != INVALID_KEY
+
+
+def build_conv_rulebook(keys, grid: GridSpec, kernel, stride, padding,
+                        out_cap: int) -> Tuple[Rulebook, GridSpec]:
+    """Strided (non-submanifold) rulebook, SparseConv3d semantics.
+    kernel/stride/padding are (x, y, z) tuples."""
+    out_grid = grid.downsample(stride, padding, kernel)
+    out_keys, out_valid = _strided_out_keys(keys, grid, out_grid, kernel, stride,
+                                            padding, out_cap)
+    oc = coords_from_keys(out_keys.long(), out_grid)  # (Vo, 3) zyx
+    origin = torch.stack([oc[:, 0] * stride[2] - padding[2],
+                          oc[:, 1] * stride[1] - padding[1],
+                          oc[:, 2] * stride[0] - padding[0]], dim=-1)
+    offs = torch.tensor(_kernel_offsets(kernel), device=keys.device)
+    ic = origin[:, None, :] + offs[None, :, :]  # (Vo, K, 3) input zyx
+    idx, found = lookup(keys, ic[..., 0], ic[..., 1], ic[..., 2], grid,
+                        out_valid[:, None].expand(-1, offs.shape[0]))
+    return Rulebook(idx, found, out_keys, out_valid), out_grid
+
+
+def _stack_books(books) -> Rulebook:
+    return Rulebook(*(torch.stack(f) for f in zip(*books)))
+
+
+def build_subm_rulebook_batched(keys, grid: GridSpec, kernel=(3, 3, 3)) -> Rulebook:
+    """build_subm_rulebook over a leading batch axis of keys (B, V)."""
+    return _stack_books([build_subm_rulebook(k, grid, kernel) for k in keys])
+
+
+def build_conv_rulebook_batched(keys, grid: GridSpec, kernel, stride, padding, out_cap):
+    """build_conv_rulebook over a leading batch axis -> (Rulebook, out_grid)."""
+    outs = [build_conv_rulebook(k, grid, kernel, stride, padding, out_cap) for k in keys]
+    return _stack_books([rb for rb, _ in outs]), grid.downsample(stride, padding, kernel)
+
+
+def to_dense(features, keys, grid: GridSpec):
+    """Scatter (V, C) sparse rows into a dense (nz, ny, nx, C) grid."""
+    c = features.shape[-1]
+    valid = keys != INVALID_KEY
+    target = torch.where(valid, keys.long(), grid.num_cells)  # last row: drop slot
+    dense = torch.zeros((grid.num_cells + 1, c), dtype=features.dtype,
+                        device=features.device)
+    dense[target] = features
+    return dense[:grid.num_cells].reshape(grid.nz, grid.ny, grid.nx, c)
+
+
+def sparse_conv_apply_batched(features, rulebook: Rulebook, weights,
+                              compute_dtype=None, out_dtype=torch.float32):
+    """Batched sparse conv, eval path: features (B, V_in, Cin), rulebook with
+    a leading batch axis, weights (K, Cin, Cout) -> (B, V_out, Cout).
+
+    Operands are cast to ``compute_dtype``; the kernel accumulates in f32 and
+    rounds once to ``out_dtype``. Rows outside ``out_valid`` come back zero."""
+    k, cin, cout = weights.shape
+    if compute_dtype is not None:
+        features = features.to(compute_dtype)
+        weights = weights.to(compute_dtype)
+    out = gather_gemm(features.contiguous(), rulebook.idx, rulebook.found,
+                      weights.reshape(k * cin, cout).contiguous(), out_dtype=out_dtype)
+    return torch.where(rulebook.out_valid[..., None], out, 0.0)

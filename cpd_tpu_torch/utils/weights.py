@@ -1,0 +1,130 @@
+"""Weights for the port: the JAX parameter tree bridge and seeded weights.
+
+``state_dict_from_jax`` maps the JAX package's ``{"params", "batch_stats"}``
+tree (numpy leaves) to this package's state dict. Module names follow the
+flax tree, with flax's auto-names renamed (``SubMConvBN_0/1`` -> ``conv1/2``,
+``MaskedBatchNorm_0``/``BatchNorm2d_0`` -> ``bn``, ``Conv_0`` -> ``conv``) and
+the GridPoolBranch MLP layers (``Dense_0..7``, flax's creation order) mapped
+to ``mlp_{scale}_{group}.{0,2}``. Leaves change layout:
+
+* sparse conv kernels (K, Cin, Cout) pass through unchanged;
+* flax Conv (kh, kw, Cin, Cout) -> torch (Cout, Cin, kh, kw);
+* the stride-2 flax ConvTranspose deblock (kh, kw, Cin, Cout) -> torch
+  ConvTranspose2d (Cin, Cout, kh, kw) with the spatial taps flipped (flax
+  applies the kernel unflipped; torch computes the conv adjoint);
+* Dense (Cin, Cout) -> Linear (Cout, Cin);
+* BN scale/bias/mean/var -> weight/bias/running_mean/running_var.
+
+``seeded_state_dict`` fills every parameter and buffer of a model from
+``numpy.random.default_rng(seed)`` with spread (running variances in
+[0.5, 2], spread head biases), so scores do not sit on the thresholds.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+from ..models.norm import _RunningNorm
+from ..models.roi_head import SCALE_SPECS
+
+_SEGMENTS = {"SubMConvBN_0": "conv1", "SubMConvBN_1": "conv2", "MaskedBatchNorm_0": "bn",
+             "BatchNorm2d_0": "bn", "Conv_0": "conv"}
+_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+           "var": "running_var"}
+# flax creation order of GridPoolBranch's MLP Dense layers
+_MLP_GROUPS = [(name, gi) for name, _, *groups in SCALE_SPECS for gi in range(len(groups))]
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _convert(path, leaf):
+    """One JAX leaf -> (torch key, array)."""
+    *mods, name = path
+    if mods and re.fullmatch(r"Dense_\d+", mods[-1]):  # GridPoolBranch MLPs
+        i = int(mods[-1].split("_")[1])
+        scale, gi = _MLP_GROUPS[i // 2]
+        mods = mods[:-1] + [f"mlp_{scale}_{gi}", str(2 * (i % 2))]
+    mods = [_SEGMENTS.get(m, m) for m in mods]
+    if name == "kernel":
+        if leaf.ndim == 2:  # Dense
+            leaf = leaf.T
+        elif leaf.ndim == 4 and re.fullmatch(r"deblock\d+", mods[-1]) and leaf.shape[0] > 1:
+            leaf = np.transpose(leaf[::-1, ::-1], (2, 3, 0, 1))  # ConvTranspose
+        elif leaf.ndim == 4:  # Conv
+            leaf = np.transpose(leaf, (3, 2, 0, 1))
+        elif leaf.ndim != 3:  # sparse conv kernels pass through
+            raise ValueError(f"unexpected kernel rank at {'/'.join(path)}: {leaf.shape}")
+        key = "weight"
+    elif name in _LEAVES:
+        key = _LEAVES[name]
+    else:
+        raise KeyError(f"unmapped JAX leaf {'/'.join(path)}")
+    return ".".join(mods + [key]), np.ascontiguousarray(leaf)
+
+
+def state_dict_from_jax(variables, model):
+    """JAX ``{"params", "batch_stats"}`` tree -> ``model``'s state dict.
+
+    Checks that every model key is filled, every JAX leaf is used and every
+    shape matches; raises on any mismatch."""
+    out = {}
+    for col in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(col, {})):
+            key, arr = _convert(path, leaf)
+            if key in out:
+                raise KeyError(f"two JAX leaves map to {key}")
+            out[key] = torch.from_numpy(arr.astype(np.float32))
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise KeyError(f"unmapped JAX collections {sorted(unknown)}")
+    want = model.state_dict()
+    missing = sorted(set(want) - set(out))
+    extra = sorted(set(out) - set(want))
+    if missing or extra:
+        raise KeyError(f"weight bridge mismatch: missing {missing}, unmapped {extra}")
+    bad = [(k, tuple(out[k].shape), tuple(v.shape)) for k, v in want.items()
+           if out[k].shape != v.shape]
+    if bad:
+        raise ValueError(f"shape mismatch (key, jax, torch): {bad}")
+    return out
+
+
+def seeded_state_dict(model, seed: int):
+    """Every parameter and buffer of ``model`` drawn from
+    ``numpy.random.default_rng(seed)``: He-scaled conv/linear weights, BN
+    scales in [0.9, 1.3], shifts and running means in [-0.1, 0.1], running
+    variances in [0.5, 2], biases in [-0.1, 0.1]; the heatmap output bias is
+    -2.19 (the CenterHead prior) spread by [-0.5, 0.5]."""
+    rng = np.random.default_rng(seed)
+    norms = {name for name, m in model.named_modules() if isinstance(m, _RunningNorm)}
+    out = {}
+    for key, t in model.state_dict().items():
+        owner, _, leaf = key.rpartition(".")
+        shape = tuple(t.shape)
+        if owner in norms:
+            lo, hi = {"weight": (0.9, 1.3), "running_var": (0.5, 2.0)}.get(leaf, (-0.1, 0.1))
+            arr = rng.uniform(lo, hi, shape)
+        elif leaf == "bias":
+            arr = rng.uniform(-0.1, 0.1, shape)
+            if owner.endswith("head_hm.out"):
+                arr = -2.19 + rng.uniform(-0.5, 0.5, shape)
+        elif len(shape) == 3:  # sparse conv (K, Cin, Cout)
+            arr = rng.normal(0.0, np.sqrt(2.0 / (shape[0] * shape[1])), shape)
+        elif len(shape) == 4:
+            transposed = bool(re.search(r"deblock\d+$", owner)) and shape[2] > 1
+            fan_in = shape[0] if transposed else shape[1] * shape[2] * shape[3]
+            arr = rng.normal(0.0, np.sqrt(2.0 / fan_in), shape)
+        elif len(shape) == 2:  # Linear (Cout, Cin)
+            arr = rng.normal(0.0, np.sqrt(2.0 / shape[1]), shape)
+        else:
+            raise KeyError(f"no seeding rule for {key} {shape}")
+        out[key] = torch.from_numpy(arr.astype(np.float32))
+    return out
