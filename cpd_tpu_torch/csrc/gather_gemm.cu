@@ -23,6 +23,15 @@
 // Cout = 16 or 32 most of a 64-wide column tile is masked. Tensor cores,
 // skipping empty taps and a column tile sized to Cout are the next steps.
 //
+// The same kernel is the input gradient dX of the conv, launched on other
+// operands: table = dY (B, V_out, Cout), idx/found = the TRANSPOSE rulebook
+// (B, V_in, K) (for a strided conv the inverse rulebook, idx[u, k] = the
+// output row whose tap k reads input row u; for a submanifold conv the
+// forward rulebook with its tap columns reversed, as a contiguous copy), and
+// w = W^T per tap, laid out (K*Cout, Cin):
+//
+//   dX[b, u, :] = sum_k t_found[b, u, k] ? dY[b, t_idx[b, u, k], :] @ W[k]^T : 0
+//
 // Design (right and simple first): one block per (tile of TM output rows,
 // tile of TN output channels, batch). A loop over the K taps and over Cin in
 // chunks of TK stages the gathered rows (zero where found is false: the

@@ -36,7 +36,7 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, compute_dtype=None):
 
 
 class ConvBNReLU(nn.Module):
-    """3x3 conv (no bias) + BatchNorm2d(eps 1e-3) + ReLU on NCHW maps."""
+    """3x3 conv (no bias) + BatchNorm2d(eps 1e-3, momentum 0.01) + ReLU on NCHW maps."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3, stride: int = 1,
                  compute_dtype=torch.bfloat16):
@@ -46,7 +46,7 @@ class ConvBNReLU(nn.Module):
         self.compute_dtype = compute_dtype
         self.conv = nn.Module()
         self.conv.weight = nn.Parameter(torch.zeros(features, in_channels, kernel, kernel))
-        self.bn = BatchNorm2d(features, eps=1e-3)
+        self.bn = BatchNorm2d(features, eps=1e-3, momentum=0.01)
 
     def forward(self, x):
         x = conv2d(x, self.conv.weight, None, self.stride, self.padding, self.compute_dtype)
@@ -76,7 +76,7 @@ class BaseBEVBackbone(nn.Module):
             shape = (f, uf, us, us) if us > 1 else (uf, f, 1, 1)
             deblock.weight = nn.Parameter(torch.zeros(shape))
             self.add_module(f"deblock{i}", deblock)
-            self.add_module(f"deblock{i}_bn", BatchNorm2d(uf, eps=1e-3))
+            self.add_module(f"deblock{i}_bn", BatchNorm2d(uf, eps=1e-3, momentum=0.01))
             c_in = f
 
     def forward(self, x):

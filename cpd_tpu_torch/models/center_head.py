@@ -1,5 +1,6 @@
-"""CenterHead RPN, inference half (port of cpd_tpu/models/center_head.py):
-shared conv, separate prediction heads, top-K decode + proposal NMS."""
+"""CenterHead RPN (port of cpd_tpu/models/center_head.py): shared conv,
+separate prediction heads, top-K decode + proposal NMS, and for training the
+gaussian target assignment and the focal + L1 losses."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -8,6 +9,7 @@ import torch
 from torch import nn
 
 from ..ops import gaussian, nms
+from ..utils import loss as loss_utils
 from .bev import conv2d
 from .norm import BatchNorm2d
 
@@ -50,9 +52,17 @@ class CenterHead(nn.Module):
                  head_dims: Tuple[int, ...] = (2, 1, 3, 2),
                  voxel_size=(0.1, 0.1, 0.15),
                  point_cloud_range=(-75.2, -75.2, -2.0, 75.2, 75.2, 4.0),
-                 feature_map_stride: int = 8, compute_dtype=torch.bfloat16):
+                 feature_map_stride: int = 8, gaussian_overlap: float = 0.1,
+                 min_radius: int = 2, cls_weight: float = 1.0, loc_weight: float = 2.0,
+                 code_weights: Tuple[float, ...] = (1.0,) * 8, compute_dtype=torch.bfloat16):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.num_classes = num_classes
+        self.gaussian_overlap = gaussian_overlap
+        self.min_radius = min_radius
+        self.cls_weight = cls_weight
+        self.loc_weight = loc_weight
+        self.code_weights = tuple(code_weights)
         self.head_order = tuple(head_order)
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
@@ -73,6 +83,26 @@ class CenterHead(nn.Module):
         x = torch.relu(self.shared_bn(x))
         names = ("hm",) + self.head_order
         return {n: getattr(self, f"head_{n}")(x).permute(0, 2, 3, 1) for n in names}
+
+    def assign_targets(self, gt_boxes, gt_valid, feature_map_size):
+        """Batched target assignment. gt_boxes (B, N, 8), gt_valid (B, N) ->
+        heatmap (B, C, H, W), target_boxes (B, N, 8), inds (B, N), mask (B, N)."""
+        per_sample = [gaussian.assign_center_targets(
+            b, v, self.num_classes, feature_map_size, self.voxel_size,
+            self.point_cloud_range, self.feature_map_stride, self.gaussian_overlap,
+            self.min_radius) for b, v in zip(gt_boxes, gt_valid)]
+        return {k: torch.stack([t[k] for t in per_sample]) for k in per_sample[0]}
+
+    def get_loss(self, preds, targets):
+        """Focal heatmap loss + L1 regression loss at the peak pixels."""
+        hm_pred = torch.sigmoid(preds["hm"].permute(0, 3, 1, 2))
+        hm_loss = loss_utils.focal_loss_centernet(hm_pred, targets["heatmap"])
+        reg_maps = torch.cat([preds[k] for k in self.head_order], dim=-1).permute(0, 3, 1, 2)
+        reg_loss = loss_utils.reg_loss_centernet(reg_maps, targets["target_boxes"],
+                                                 targets["inds"], targets["mask"])
+        loc_loss = torch.sum(reg_loss * reg_loss.new_tensor(self.code_weights))
+        total = self.cls_weight * hm_loss + self.loc_weight * loc_loss
+        return total, {"hm_loss": hm_loss, "loc_loss": loc_loss}
 
     def generate_predicted_boxes(self, preds, k=500, score_thresh=0.1, nms_cfg=None,
                                  post_max_size=500):

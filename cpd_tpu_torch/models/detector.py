@@ -1,11 +1,12 @@
-"""The CPD detector's inference path (port of cpd_tpu/models/detector.py::VoxelRCNN).
+"""The CPD detector (port of cpd_tpu/models/detector.py::VoxelRCNN).
 
 voxelize (MeanVFE fused) -> VoxelResBackBone8x (sparse, kernel A1) ->
 HeightCompression -> BaseBEVBackbone -> CenterHead proposals ->
-VoxelRCNNProtoHead -> final NMS. The constructor keeps the JAX module's
-field names, so the JAX package's model kwargs carry over. The MM siamese
-branch, the dense tail, training and the YAML-driven ``build_network`` are
-not ported yet.
+VoxelRCNNProtoHead -> final NMS (``predict``, eval mode), or in training
+mode -> dense-head and RoI-head losses (``loss_step``), with the MM siamese
+branch encoding the proto-completed view when ``mm=True``. The constructor
+keeps the JAX module's field names, so the JAX package's model kwargs carry
+over. The dense tail and the YAML-driven ``build_network`` are not ported.
 """
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ def keys_from_frame(frame, grid: GridSpec):
 
 
 class VoxelRCNN(nn.Module):
-    """The CPD detector at inference: VoxelResBackBone8x -> BEV -> CenterHead
-    -> ProtoHead. Call ``.eval()``; ``predict`` is the entry point."""
+    """The CPD detector: VoxelResBackBone8x -> BEV -> CenterHead -> ProtoHead.
+    ``predict`` (after ``.eval()``) and ``loss_step`` (after ``.train()``) are
+    the entry points."""
 
     def __init__(self, num_classes: int = 3,
                  point_cloud_range: Tuple[float, ...] = (-75.2, -75.2, -2.0, 75.2, 75.2, 4.0),
@@ -44,16 +46,12 @@ class VoxelRCNN(nn.Module):
                  roi_per_image: int = 130, rpn_nms=None,
                  bev_layer_nums=(5, 5), bev_layer_strides=(1, 2),
                  bev_num_filters=(128, 256), bev_upsample_strides=(1, 2),
-                 bev_num_upsample_filters=(256, 256)):
+                 bev_num_upsample_filters=(256, 256), roi_head_cfg=None):
         super().__init__()
-        if mm:
-            raise NotImplementedError("the MM siamese branch is not ported yet (mm=False)")
         if dense_tail:
             raise NotImplementedError("the dense tail is not ported yet (dense_tail=False)")
-        # num_rois / roi_per_image size the training path; kept for the
-        # JAX constructor's field names
+        self.mm = mm
         self.num_rois = num_rois
-        self.roi_per_image = roi_per_image
         self.num_rois_test = num_rois_test
         self.rpn_nms = dict(rpn_nms or {"NMS_THRESH": 0.8, "NMS_PRE_MAXSIZE": 4096})
         self.point_cloud_range = tuple(point_cloud_range)
@@ -63,7 +61,7 @@ class VoxelRCNN(nn.Module):
         nx, ny, nz = self.vox_spec.grid_size
         self.grid = GridSpec(nx, ny, nz + 1)  # spconv convention: +1 on z
         self.backbone = VoxelResBackBone8x(self.grid, num_point_features,
-                                           backbone_filters, backbone_caps)
+                                           backbone_filters, backbone_caps, mm=mm)
         grids = stage_grids(self.grid)
         c3 = backbone_filters[3]
         self.bev_backbone = BaseBEVBackbone(
@@ -75,29 +73,64 @@ class VoxelRCNN(nn.Module):
         self.roi_head = VoxelRCNNProtoHead(
             {k: grids[k] for k in ("x_conv3", "x_conv4")},
             {"x_conv3": backbone_filters[2], "x_conv4": backbone_filters[3]},
-            grid_size=roi_grid_size, voxel_size=voxel_size,
-            point_cloud_range=point_cloud_range)
+            num_rois=num_rois, roi_per_image=roi_per_image, grid_size=roi_grid_size,
+            voxel_size=voxel_size, point_cloud_range=point_cloud_range, mm=mm,
+            **dict(roi_head_cfg or {}))
 
-    def forward(self, batch: Dict[str, torch.Tensor]):
-        """batch: points (B, P, C), optional points_valid (B, P)."""
+    def forward(self, batch: Dict[str, torch.Tensor], sampling_uniforms=None, generator=None):
+        """batch: points (B, P, C), optional points_valid (B, P); in training
+        mode also gt_boxes (B, N, 8), gt_valid, optionally css_score and, with
+        ``mm``, the proto-completed view points1 / points1_valid (falling back
+        to the raw points). ``sampling_uniforms`` and ``generator`` feed the
+        RoI sampling and the dropout (see ``VoxelRCNNProtoHead.forward``)."""
         frame = voxelize_batch(batch["points"], self.vox_spec, batch.get("points_valid"))
         keys = keys_from_frame(frame, self.grid)
-        backbone_out = self.backbone(frame.features, keys)
+        feats_mm = keys_mm = None
+        if self.mm and self.training:
+            frame_mm = voxelize_batch(batch.get("points1", batch["points"]), self.vox_spec,
+                                      batch.get("points1_valid", batch.get("points_valid")))
+            feats_mm = frame_mm.features
+            keys_mm = keys_from_frame(frame_mm, self.grid)
+        backbone_out = self.backbone(frame.features, keys, feats_mm, keys_mm)
         enc_feats, enc_keys, enc_grid = backbone_out["encoded"]
         bev = height_compression(enc_feats, enc_keys, enc_grid)
-        return self._bev_to_heads(bev, backbone_out)
+        return self._bev_to_heads(bev, backbone_out, batch, sampling_uniforms, generator)
 
-    def _bev_to_heads(self, bev, backbone_out):
+    def _bev_to_heads(self, bev, backbone_out, batch, sampling_uniforms, generator):
+        train = self.training
         st_features_2d = self.bev_backbone(bev)
         head_preds = self.dense_head(st_features_2d)
-        rpn_nms = dict(self.rpn_nms, NMS_POST_MAXSIZE=self.num_rois_test)
-        proposals = self.dense_head.generate_predicted_boxes(
-            head_preds, k=500, score_thresh=0.1, nms_cfg=rpn_nms,
-            post_max_size=self.num_rois_test)
+        n_rois = self.num_rois if train else self.num_rois_test
+        rpn_nms = dict(self.rpn_nms, NMS_POST_MAXSIZE=n_rois)
+        # proposals are constants to the second stage: the RPN learns from
+        # its own loss
+        with torch.no_grad():
+            proposals = self.dense_head.generate_predicted_boxes(
+                head_preds, k=500, score_thresh=0.0 if train else 0.1, nms_cfg=rpn_nms,
+                post_max_size=n_rois)
         out = {"head_preds": head_preds, "backbone_out": backbone_out}
         out.update(proposals)
-        out.update(self.roi_head(proposals, backbone_out))
+        out.update(self.roi_head(proposals, backbone_out, batch, sampling_uniforms, generator))
         return out
+
+    def compute_loss(self, out, batch):
+        """Total training loss = dense-head loss + RoI-head loss, and the
+        dict of its named parts."""
+        h, w = out["head_preds"]["hm"].shape[1:3]
+        targets = self.dense_head.assign_targets(batch["gt_boxes"], batch["gt_valid"], (h, w))
+        rpn_loss, tb = self.dense_head.get_loss(out["head_preds"], targets)
+        rcnn_loss, tb2 = self.roi_head.get_loss(out, batch)
+        tb.update(tb2)
+        total = rpn_loss + rcnn_loss
+        tb["rpn_loss"] = rpn_loss
+        tb["total_loss"] = total
+        return total, tb
+
+    def loss_step(self, batch, sampling_uniforms=None, generator=None):
+        """Training forward + loss (call after ``.train()``): (total, tb)."""
+        if not self.training:
+            raise RuntimeError("loss_step needs training mode: call .train() first")
+        return self.compute_loss(self(batch, sampling_uniforms, generator), batch)
 
     @torch.no_grad()
     def predict(self, batch):

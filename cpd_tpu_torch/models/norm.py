@@ -1,8 +1,12 @@
-"""Batch norms, inference path (port of cpd_tpu/models/norm.py).
+"""Batch norms (port of cpd_tpu/models/norm.py).
 
-Both normalise with their running statistics in f32 and cast the result back
-to the input dtype, at the JAX package's cast points. Batch statistics
-(training) come with the training path; a module in training mode raises.
+Both compute in f32 and cast the result back to the input dtype, at the JAX
+package's cast points. In eval mode they normalise with their running
+statistics. In training mode they normalise with the batch's own moments,
+the gradient flows through those moments, and the running statistics move
+by ``running = (1 - momentum) * running + momentum * batch`` with the BIASED
+batch variance (torch's own BatchNorm stores the unbiased one). One device:
+there is no cross-device sync of the moments.
 """
 from __future__ import annotations
 
@@ -11,39 +15,62 @@ from torch import nn
 
 
 class _RunningNorm(nn.Module):
-    def __init__(self, num_features: int, eps: float):
+    def __init__(self, num_features: int, eps: float, momentum: float):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def _normalize(self, x):
-        if self.training:
-            raise NotImplementedError("batch statistics (training mode) are not ported "
-                                      "yet; call .eval()")
-        return ((x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-                * self.weight + self.bias)
+    def _update_running(self, mean, var):
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+
+    def _normalize(self, x, mean, var):
+        return (x.float() - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
 class MaskedBatchNorm(_RunningNorm):
-    """BatchNorm over (..., C) rows; rows outside ``valid`` come out zero."""
+    """BatchNorm over the valid rows of (..., C) features; rows outside
+    ``valid`` come out zero and stay out of the batch moments, which are
+    ``mean = E[x]``, ``var = clip(E[x^2] - mean^2, 0)`` over the valid rows."""
 
-    def __init__(self, num_features: int, eps: float = 1e-3):
-        super().__init__(num_features, eps)
+    def __init__(self, num_features: int, eps: float = 1e-3, momentum: float = 0.01):
+        super().__init__(num_features, eps, momentum)
 
     def forward(self, x, valid):
-        y = self._normalize(x)
+        if self.training:
+            mask = valid[..., None].float()
+            xf = x.float()
+            dims = tuple(range(x.dim() - 1))
+            cnt = torch.clamp(mask.sum(), min=1.0)
+            mean = (xf * mask).sum(dims) / cnt
+            var = torch.clamp((xf * xf * mask).sum(dims) / cnt - mean * mean, min=0.0)
+            self._update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = self._normalize(x, mean, var)
         return torch.where(valid[..., None], y, 0.0).to(x.dtype)
 
 
 class BatchNorm2d(_RunningNorm):
-    """BatchNorm over the channel axis of an NCHW map (torch eps default 1e-5)."""
+    """BatchNorm over the channel axis of an NCHW map (torch defaults: eps
+    1e-5, momentum 0.1)."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
-        super().__init__(num_features, eps)
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__(num_features, eps, momentum)
 
     def forward(self, x):
-        y = self._normalize(x.movedim(1, -1)).movedim(-1, 1)
-        return y.to(x.dtype)
+        xc = x.movedim(1, -1)
+        if self.training:
+            xf = xc.float()
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = xf.var(dims, unbiased=False)
+            self._update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return self._normalize(xc, mean, var).movedim(-1, 1).to(x.dtype)

@@ -8,6 +8,21 @@ class ResidualCoder:
     """Anchor-residual coder for (x, y, z, dx, dy, dz, heading) boxes, code
     size 7 (the RoI head's setting)."""
 
+    def encode(self, boxes, anchors):
+        """boxes/anchors: (..., 7) -> (..., 7) residual targets."""
+        dxa = torch.clamp(anchors[..., 3], min=1e-5)
+        dya = torch.clamp(anchors[..., 4], min=1e-5)
+        dza = torch.clamp(anchors[..., 5], min=1e-5)
+        dxg = torch.clamp(boxes[..., 3], min=1e-5)
+        dyg = torch.clamp(boxes[..., 4], min=1e-5)
+        dzg = torch.clamp(boxes[..., 5], min=1e-5)
+        diag = torch.sqrt(dxa ** 2 + dya ** 2)
+        return torch.stack([(boxes[..., 0] - anchors[..., 0]) / diag,
+                            (boxes[..., 1] - anchors[..., 1]) / diag,
+                            (boxes[..., 2] - anchors[..., 2]) / dza,
+                            torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza),
+                            boxes[..., 6] - anchors[..., 6]], dim=-1)
+
     def decode(self, encodings, anchors):
         """encodings: (..., 7), anchors: (..., 7) -> (..., 7) boxes."""
         dxa = torch.clamp(anchors[..., 3], min=1e-5)

@@ -28,6 +28,18 @@ def rotate_points_along_z(points, angle):
     return torch.cat([rotated, points[..., 3:]], dim=-1)
 
 
+def boxes_to_corners_3d(boxes):
+    """(N, 7[+]) boxes -> (N, 8, 3) corners: the bottom face counter-clockwise
+    from (+x, +y), then the top face in the same order."""
+    template = torch.tensor(
+        [[1, 1, -1], [1, -1, -1], [-1, -1, -1], [-1, 1, -1],
+         [1, 1, 1], [1, -1, 1], [-1, -1, 1], [-1, 1, 1]],
+        dtype=boxes.dtype, device=boxes.device) / 2.0
+    corners = boxes[:, None, 3:6] * template[None]
+    corners = rotate_points_along_z(corners, boxes[:, 6])
+    return corners + boxes[:, None, 0:3]
+
+
 def boxes_to_corners_bev(boxes):
     """(N, 7[+]) boxes -> (N, 4, 2) BEV corners, counter-clockwise order."""
     half_dx = boxes[:, 3] / 2.0

@@ -1,4 +1,4 @@
-"""Rotated BEV box overlap and IoU (port of cpd_tpu/ops/iou3d.py).
+"""Rotated BEV and 3D box overlap and IoU (port of cpd_tpu/ops/iou3d.py).
 
 The intersection polygon of two convex quads is spanned by the corners of
 each inside the other plus the 16 edge-edge intersections; its area comes
@@ -107,3 +107,18 @@ def boxes_iou_bev(boxes_a, boxes_b):
     area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
     area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
     return overlap / torch.clamp(area_a + area_b - overlap, min=1e-6)
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """(N, 7), (M, 7) -> (N, M) 3D IoU: BEV overlap times the z-extent overlap."""
+    overlap_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    a_zmin = (boxes_a[:, 2] - boxes_a[:, 5] / 2.0)[:, None]
+    a_zmax = (boxes_a[:, 2] + boxes_a[:, 5] / 2.0)[:, None]
+    b_zmin = (boxes_b[:, 2] - boxes_b[:, 5] / 2.0)[None, :]
+    b_zmax = (boxes_b[:, 2] + boxes_b[:, 5] / 2.0)[None, :]
+    overlap_h = torch.clamp(torch.minimum(a_zmax, b_zmax) - torch.maximum(a_zmin, b_zmin),
+                            min=0.0)
+    overlap_3d = overlap_bev * overlap_h
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)

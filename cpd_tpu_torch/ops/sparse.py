@@ -10,7 +10,10 @@ gather-mode variants are TPU lowering workarounds).
 
 A ``Rulebook`` holds, per output row and kernel tap, the input row to gather
 (``idx``) and whether it exists (``found``); ``idx`` is 0 where ``found`` is
-False. The conv itself is kernel A1 (``ops/gather_gemm.py``).
+False. The conv's forward is kernel A1 (``ops/gather_gemm.py``). With a
+transpose rulebook the conv is a ``torch.autograd.Function`` whose backward
+runs kernel A1 once more for dX (over the transpose rulebook, against
+``W^T`` per tap) and kernel A2 for dW: gathers and GEMMs only, no scatter.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .gather_gemm import gather_gemm
+from .gather_gemm import gather_gemm, gather_gemm_dw
 
 INVALID_KEY = 2**31 - 1  # padding sentinel for key arrays
 
@@ -169,6 +172,48 @@ def build_conv_rulebook_batched(keys, grid: GridSpec, kernel, stride, padding, o
     return _stack_books([rb for rb, _ in outs]), grid.downsample(stride, padding, kernel)
 
 
+def build_inverse_rulebook(in_keys, out_keys, grid: GridSpec, out_grid: GridSpec,
+                           kernel, stride, padding) -> Rulebook:
+    """Transpose of a strided-conv rulebook, tap-aligned: for input row u and
+    tap k, ``idx[u, k]`` is the OUTPUT row v whose forward rulebook has
+    ``idx[v, k] == u`` (output site (u + p - tap_k) / s where that divides),
+    so dX[u] = sum_k found[u, k] * dY[idx[u, k]] @ W[k]^T is a gather-GEMM.
+    in_keys (V_in,), out_keys (V_out,), both sorted; kernel/stride/padding
+    are (x, y, z) tuples."""
+    valid = in_keys != INVALID_KEY
+    coords = coords_from_keys(in_keys.long(), grid)  # (V, 3) zyx
+    dev = in_keys.device
+    offs = torch.tensor(_kernel_offsets(kernel), device=dev)  # (K, 3) zyx taps
+    pad = torch.tensor(padding[::-1], device=dev)
+    s = torch.tensor(stride[::-1], device=dev)
+    num = coords[:, None, :] + pad - offs[None, :, :]  # (V, K, 3)
+    ok = torch.all(num % s == 0, dim=-1) & valid[:, None]
+    oc = torch.div(num, s, rounding_mode="floor")
+    idx, found = lookup(out_keys, oc[..., 0], oc[..., 1], oc[..., 2], out_grid, ok)
+    return Rulebook(idx, found, in_keys, valid)
+
+
+def build_inverse_rulebook_batched(in_keys, out_keys, grid: GridSpec, out_grid: GridSpec,
+                                   kernel, stride, padding) -> Rulebook:
+    """build_inverse_rulebook over a leading batch axis of both key arrays."""
+    return _stack_books([build_inverse_rulebook(i, o, grid, out_grid, kernel, stride, padding)
+                         for i, o in zip(in_keys, out_keys)])
+
+
+def mirror_rulebook(rulebook: Rulebook) -> Rulebook:
+    """Transpose of a SUBMANIFOLD rulebook: the same table with the tap
+    columns reversed, as a contiguous copy (kernel A1 reads its rulebook
+    row-major). Tap reversal negates the centre-relative offsets only when
+    every kernel dim is odd, i.e. when the kernel volume is odd. Build it
+    once per stage: the four convs of a stage share it."""
+    k = rulebook.idx.shape[-1]
+    if k % 2 != 1:
+        raise ValueError(f"mirror transpose requires an all-odd kernel (volume {k} is "
+                         "even); build an explicit inverse rulebook instead")
+    return Rulebook(rulebook.idx.flip(-1).contiguous(), rulebook.found.flip(-1).contiguous(),
+                    rulebook.out_keys, rulebook.out_valid)
+
+
 def to_dense(features, keys, grid: GridSpec):
     """Scatter (V, C) sparse rows into a dense (nz, ny, nx, C) grid."""
     c = features.shape[-1]
@@ -180,17 +225,64 @@ def to_dense(features, keys, grid: GridSpec):
     return dense[:grid.num_cells].reshape(grid.nz, grid.ny, grid.nx, c)
 
 
+class _SparseConv(torch.autograd.Function):
+    """Sparse conv with a gather-only backward: forward kernel A1; backward
+    kernel A1 over the transpose rulebook for dX and kernel A2 for dW."""
+
+    @staticmethod
+    def forward(ctx, features, weights, rulebook, transpose, compute_dtype, out_dtype):
+        k, cin, cout = weights.shape
+        cd = compute_dtype or features.dtype
+        x = features.to(cd).contiguous()
+        w = weights.to(cd)
+        out = gather_gemm(x, rulebook.idx, rulebook.found,
+                          w.reshape(k * cin, cout).contiguous(), out_dtype=out_dtype)
+        ctx.save_for_backward(x, w, rulebook.idx, rulebook.found, rulebook.out_valid,
+                              transpose.idx, transpose.found)
+        ctx.dtypes = (features.dtype, weights.dtype)
+        return torch.where(rulebook.out_valid[..., None], out, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, idx, found, out_valid, t_idx, t_found = ctx.saved_tensors
+        k, cin, cout = w.shape
+        # dY masked by out_valid and rounded to the compute dtype, as X was
+        g = torch.where(out_valid[..., None], g, 0.0).to(x.dtype).contiguous()
+        dx = None
+        if ctx.needs_input_grad[0]:
+            w_t = w.transpose(1, 2).reshape(k * cout, cin).contiguous()
+            dx = gather_gemm(g, t_idx, t_found, w_t, out_dtype=ctx.dtypes[0])
+        dw = gather_gemm_dw(x, idx, found, g).reshape(k, cin, cout).to(ctx.dtypes[1])
+        return dx, dw, None, None, None, None
+
+
 def sparse_conv_apply_batched(features, rulebook: Rulebook, weights,
-                              compute_dtype=None, out_dtype=torch.float32):
-    """Batched sparse conv, eval path: features (B, V_in, Cin), rulebook with
-    a leading batch axis, weights (K, Cin, Cout) -> (B, V_out, Cout).
+                              compute_dtype=None, transpose=None, out_dtype=torch.float32):
+    """Batched sparse conv: features (B, V_in, Cin), rulebook with a leading
+    batch axis, weights (K, Cin, Cout) -> (B, V_out, Cout).
 
     Operands are cast to ``compute_dtype``; the kernel accumulates in f32 and
-    rounds once to ``out_dtype``. Rows outside ``out_valid`` come back zero."""
+    rounds once to ``out_dtype``. Rows outside ``out_valid`` come back zero.
+
+    ``transpose`` selects the differentiable path (kernels A1 and A2 in the
+    backward, no scatter): the transpose ``Rulebook``, from
+    ``mirror_rulebook(rulebook)`` for a submanifold conv (one flipped copy
+    serves all convs of a stage) or from ``build_inverse_rulebook_batched``
+    for a strided conv. ``None`` is the forward-only path: it records no
+    gradient."""
+    if transpose is not None:
+        if not isinstance(transpose, Rulebook):
+            raise TypeError("transpose must be a Rulebook (mirror_rulebook(rulebook) for a "
+                            f"submanifold conv), got {type(transpose).__name__}")
+        if features.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"features must be float32 or bfloat16, got {features.dtype}")
+        return _SparseConv.apply(features, weights, rulebook, transpose, compute_dtype,
+                                 out_dtype)
     k, cin, cout = weights.shape
     if compute_dtype is not None:
         features = features.to(compute_dtype)
         weights = weights.to(compute_dtype)
-    out = gather_gemm(features.contiguous(), rulebook.idx, rulebook.found,
-                      weights.reshape(k * cin, cout).contiguous(), out_dtype=out_dtype)
+    with torch.no_grad():
+        out = gather_gemm(features.contiguous(), rulebook.idx, rulebook.found,
+                          weights.reshape(k * cin, cout).contiguous(), out_dtype=out_dtype)
     return torch.where(rulebook.out_valid[..., None], out, 0.0)

@@ -1,0 +1,6 @@
+"""Training on one device (port of cpd_tpu/parallel)."""
+from .trainer import (AdamOneCycle, TrainState, build_optimizer, cosine_onecycle_schedule,
+                      init_state, make_train_step, onecycle_momentum_schedule, resolve_device)
+
+__all__ = ["AdamOneCycle", "TrainState", "build_optimizer", "cosine_onecycle_schedule",
+           "init_state", "make_train_step", "onecycle_momentum_schedule", "resolve_device"]

@@ -159,3 +159,64 @@ def make_lidar_frame(rng: np.random.Generator, n_points: int = 200_000,
     out = np.concatenate([xyz, feats], axis=1)
     perm = rng.permutation(out.shape[0])
     return out[perm], np.ones(out.shape[0], bool)
+
+
+def make_tiny_train_batch(b: int = 2, p: int = 1024, n_gt: int = 8, seed: int = 0,
+                          with_proto: bool = True):
+    """A small training batch of numpy arrays for the tiny test configuration
+    (range +-8 m): uniform points, ``n_gt`` random labelled boxes per sample,
+    CSS scores in [0.3, 1] and, with ``with_proto``, the second view
+    ``points1`` (the points shifted by 1 cm)."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.uniform(-8, 8, (b, p, 2)), rng.uniform(-2, 4, (b, p, 1)),
+                          rng.uniform(0, 1, (b, p, 2))], axis=-1).astype(np.float32)
+    gt = np.zeros((b, n_gt, 8), np.float32)
+    gt[..., 0:2] = rng.uniform(-6, 6, (b, n_gt, 2))
+    gt[..., 2] = rng.uniform(-1, 1, (b, n_gt))
+    gt[..., 3:6] = rng.uniform(1.0, 4.0, (b, n_gt, 3))
+    gt[..., 6] = rng.uniform(-np.pi, np.pi, (b, n_gt))
+    gt[..., 7] = rng.integers(1, 4, (b, n_gt))
+    batch = {"points": pts, "points_valid": np.ones((b, p), bool), "gt_boxes": gt,
+             "gt_valid": np.ones((b, n_gt), bool),
+             "css_score": rng.uniform(0.3, 1.0, (b, n_gt)).astype(np.float32)}
+    if with_proto:
+        batch["points1"] = pts + 0.01
+        batch["points1_valid"] = np.ones((b, p), bool)
+    return batch
+
+
+def make_train_batch(seed: int, batch: int = 2, n_points: int = 200_000, n_gt: int = 64,
+                     n_labelled: int = 40, r_max: float = 70.0):
+    """A bench-scale training batch of numpy arrays: ``batch`` lidar frames
+    from different seeds (``make_lidar_frame``), ``n_gt`` label slots per
+    sample of which the first ``n_labelled`` hold class-sized boxes standing
+    on the ground at random places (class in column 7, 1-based), CSS scores
+    in [0.3, 1], and the second view ``points1``: the frame with 5% of its
+    points replaced by jittered copies of others (a stand-in for the
+    proto-completed cloud)."""
+    sizes = np.array([[4.6, 2.0, 1.7], [0.8, 0.8, 1.8], [1.8, 0.8, 1.7]], np.float32)
+    out = {k: [] for k in ("points", "points_valid", "points1", "points1_valid", "gt_boxes",
+                           "gt_valid", "css_score")}
+    for i in range(batch):
+        rng = np.random.default_rng([seed, i])
+        pts, valid = make_lidar_frame(rng, n_points)
+        pts1 = pts.copy()
+        n_new = n_points // 20
+        src = rng.integers(0, n_points, n_new)
+        pts1[rng.choice(n_points, n_new, replace=False), :3] = (
+            pts[src, :3] + rng.normal(0, 0.05, (n_new, 3)).astype(np.float32))
+        cls = rng.integers(0, 3, n_gt)
+        r = 5.0 + (r_max - 5.0) * rng.random(n_gt)
+        az = rng.uniform(0, 2 * np.pi, n_gt)
+        dims = sizes[cls] * rng.uniform(0.9, 1.15, (n_gt, 3)).astype(np.float32)
+        gt = np.concatenate([(r * np.cos(az))[:, None], (r * np.sin(az))[:, None],
+                             dims[:, 2:3] / 2, dims,
+                             rng.uniform(-np.pi, np.pi, (n_gt, 1)), cls[:, None] + 1.0],
+                            axis=1).astype(np.float32)
+        gt_valid = np.arange(n_gt) < n_labelled
+        gt[~gt_valid] = 0.0
+        for k, v in (("points", pts), ("points_valid", valid), ("points1", pts1),
+                     ("points1_valid", valid.copy()), ("gt_boxes", gt), ("gt_valid", gt_valid),
+                     ("css_score", rng.uniform(0.3, 1.0, n_gt).astype(np.float32))):
+            out[k].append(v)
+    return {k: np.stack(v) for k, v in out.items()}

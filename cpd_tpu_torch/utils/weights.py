@@ -15,6 +15,12 @@ to ``mlp_{scale}_{group}.{0,2}``. Leaves change layout:
 * Dense (Cin, Cout) -> Linear (Cout, Cin);
 * BN scale/bias/mean/var -> weight/bias/running_mean/running_var.
 
+The MM modules (``branch1``, ``pool_branch_mm``, ``shared1``, ``cls_tower1``,
+``reg_tower1``) follow the same rules. ``grads_to_jax_tree`` is the bridge's
+inverse for gradients: the port's parameter gradients in the layout of the
+flax ``params`` tree (transposes and the ConvTranspose flip undone), so that
+tests compare gradients leaf by leaf.
+
 ``seeded_state_dict`` fills every parameter and buffer of a model from
 ``numpy.random.default_rng(seed)`` with spread (running variances in
 [0.5, 2], spread head biases), so scores do not sit on the thresholds.
@@ -45,21 +51,23 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-def _convert(path, leaf):
-    """One JAX leaf -> (torch key, array)."""
+def _key_and_layout(path, leaf):
+    """One JAX leaf -> (torch key, layout): how the leaf's axes map, one of
+    "same", "dense", "conv", "deconv"."""
     *mods, name = path
     if mods and re.fullmatch(r"Dense_\d+", mods[-1]):  # GridPoolBranch MLPs
         i = int(mods[-1].split("_")[1])
         scale, gi = _MLP_GROUPS[i // 2]
         mods = mods[:-1] + [f"mlp_{scale}_{gi}", str(2 * (i % 2))]
     mods = [_SEGMENTS.get(m, m) for m in mods]
+    layout = "same"
     if name == "kernel":
-        if leaf.ndim == 2:  # Dense
-            leaf = leaf.T
+        if leaf.ndim == 2:
+            layout = "dense"
         elif leaf.ndim == 4 and re.fullmatch(r"deblock\d+", mods[-1]) and leaf.shape[0] > 1:
-            leaf = np.transpose(leaf[::-1, ::-1], (2, 3, 0, 1))  # ConvTranspose
-        elif leaf.ndim == 4:  # Conv
-            leaf = np.transpose(leaf, (3, 2, 0, 1))
+            layout = "deconv"
+        elif leaf.ndim == 4:
+            layout = "conv"
         elif leaf.ndim != 3:  # sparse conv kernels pass through
             raise ValueError(f"unexpected kernel rank at {'/'.join(path)}: {leaf.shape}")
         key = "weight"
@@ -67,7 +75,56 @@ def _convert(path, leaf):
         key = _LEAVES[name]
     else:
         raise KeyError(f"unmapped JAX leaf {'/'.join(path)}")
-    return ".".join(mods + [key]), np.ascontiguousarray(leaf)
+    return ".".join(mods + [key]), layout
+
+
+def _to_torch(leaf, layout):
+    if layout == "dense":  # (Cin, Cout) -> (Cout, Cin)
+        return leaf.T
+    if layout == "conv":  # (kh, kw, Cin, Cout) -> (Cout, Cin, kh, kw)
+        return np.transpose(leaf, (3, 2, 0, 1))
+    if layout == "deconv":  # (kh, kw, Cin, Cout) -> (Cin, Cout, kh, kw), taps flipped
+        return np.transpose(leaf[::-1, ::-1], (2, 3, 0, 1))
+    return leaf
+
+
+def _to_jax(arr, layout):
+    if layout == "dense":
+        return arr.T
+    if layout == "conv":
+        return np.transpose(arr, (2, 3, 1, 0))
+    if layout == "deconv":
+        return np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1]
+    return arr
+
+
+def _convert(path, leaf):
+    """One JAX leaf -> (torch key, array)."""
+    key, layout = _key_and_layout(path, leaf)
+    return key, np.ascontiguousarray(_to_torch(leaf, layout))
+
+
+def grads_to_jax_tree(model, params):
+    """The gradients of ``model``'s parameters (``.grad``) as a nested dict
+    of numpy arrays in the layout of ``params``, the JAX ``params`` tree the
+    model's weights came from. Raises on a leaf without a counterpart or a
+    parameter without a gradient."""
+    named = dict(model.named_parameters())
+    out = {}
+    for path, leaf in _flatten(params):
+        key, layout = _key_and_layout(path, leaf)
+        if key not in named:
+            raise KeyError(f"JAX leaf {'/'.join(path)} has no parameter {key}")
+        if named[key].grad is None:
+            raise ValueError(f"parameter {key} has no gradient")
+        grad = _to_jax(named.pop(key).grad.detach().float().cpu().numpy(), layout)
+        node = out
+        for m in path[:-1]:
+            node = node.setdefault(m, {})
+        node[path[-1]] = np.ascontiguousarray(grad)
+    if named:
+        raise KeyError(f"parameters without a JAX leaf: {sorted(named)}")
+    return out
 
 
 def state_dict_from_jax(variables, model):

@@ -60,7 +60,8 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in ('jax', 'flax', 'yaml') if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 23, names\n"
+        "assert {'cpd_tpu_torch.utils.loss', 'cpd_tpu_torch.parallel.trainer'} <= set(names)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
