@@ -2,53 +2,76 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at the bench configuration of the JAX
-package (bench.py: 3 classes, range +-75.2 x [-2, 4] m, voxels (0.1, 0.1,
-0.15) m, grid 1504 x 1504 x 41, voxel cap 90k, stage caps (80k, 48k, 24k,
-20k), 200 test RoIs, sparse backbone tail) on 200k-point synthetic lidar
-frames, with weights drawn from a seed:
-``cpd_tpu_torch.models.detector.VoxelRCNN.predict`` (batch 1, MM branch off)
-and the training step of ``cpd_tpu_torch.parallel`` (``VoxelRCNN.loss_step``
-with ``mm=True``, batch 2, 64 label slots, backward, clip, adam_onecycle).
-Phases, each raising on failure:
+Drives the port's paths at the bench configuration of the JAX package
+(bench.py: 3 classes, range +-75.2 x [-2, 4] m, voxels (0.1, 0.1, 0.15) m,
+grid 1504 x 1504 x 41, voxel cap 90k, stage caps (80k, 48k, 24k, 20k), 200
+test RoIs) on 200k-point synthetic lidar frames, with weights drawn from a
+seed: ``cpd_tpu_torch.models.detector.VoxelRCNN.predict`` (batch 1, MM
+branch off) with the dense backbone tail, as bench.py runs it, and with the
+sparse tail; the training step of ``cpd_tpu_torch.parallel``
+(``VoxelRCNN.loss_step`` with ``mm=True``, batch 2, 64 label slots, backward,
+clip, adam_onecycle; sparse tail); and the gather-formulation probes of
+``cpd_tpu_torch.probes.gather`` at the probe scripts' own sizes. Phases, each
+raising on failure:
 
 1. card: needs CUDA; prints the card's name and power limit;
-2. build: compiles kernels A1 (csrc/gather_gemm.cu) and A2
-   (csrc/gather_gemm_dw.cu) with nvcc for sm_90a, one process each;
+2. build: compiles every kernel source under cpd_tpu_torch/csrc/ (A1, A2,
+   G1-G4) with nvcc for sm_90a, one process each, side by side;
 3. kernel A1 against its plain PyTorch version on the (table, idx, found, W)
-   of each of the 21 launches of one forward, recorded at the wrapper: f32
-   within atol/rtol 1e-4 (TF32 off), bf16 (the main path's dtype) within
-   rtol 1e-2 + 1e-2 of the layer's output scale; median kernel and plain
-   times per layer shape;
-4. predict path: cap-occupancy audit, A1 launch count (21 per forward), 2
-   warm-ups then 5 timed predicts (frames/s median/min/max), peak memory,
-   finite outputs, a per-stage time breakdown, and a torch.profiler window
-   (device busy time and idle share per predict, and the top kernels);
-5. a small-input check: the same weights on the CPU (plain kernel versions)
+   of each of the 21 launches of one sparse-tail forward, recorded at the
+   wrapper: f32 within atol/rtol 1e-4 (TF32 off), bf16 (the main path's
+   dtype) within rtol 1e-2 + 1e-2 of the layer's output scale; median kernel
+   and plain times per layer shape;
+4. the probe kernels G1-G4 against their plain versions (f32 operands within
+   1e-4 of the output's scale, bf16 operands within rtol 1e-2 + 1e-2 of it
+   against the plain version's f32 result, G4 bit-equal, a second launch
+   bit-equal) on (a) each probe's own operands (G1 at P1, P2, P4 and P5, G2
+   at P3, G3 at P6, G4 at P7) and (b) the real operands of the 9 layer
+   shapes recorded in 3, with times run in turns against A1 and the plain
+   version on the same operands; then the probes' entry point
+   (``probes.gather.run_probe`` for P1-P7) with the launch counts read
+   around it;
+5. predict, sparse tail: cap-occupancy audit, A1 launch count (21 per
+   forward), 2 warm-ups then 3 timed predicts (frames/s median/min/max),
+   peak memory, finite outputs, a per-stage time breakdown, and a
+   torch.profiler window (device busy time and idle share per predict, and
+   the top kernels);
+6. predict, dense tail (this configuration is the one bench.py runs): A1 on
+   the 15 recorded launches of its forward, the cap audit, 15 A1 launches
+   per forward, 2 warm-ups and 5 timed predicts, the same breakdown and
+   profile, and dense against sparse on the same frame and weights: the key
+   sets of ``x_conv4`` and ``encoded`` equal, features, heatmap and final
+   scores within the bf16 tier;
+7. a small-input check: the same weights on the CPU (plain kernel versions)
    and on the card agree within the bf16 tier;
-6. the kernels of one training step on their real operands, recorded from a
+8. the kernels of one training step on their real operands, recorded from a
    forward + backward: A1 forward (35 convs), A1 as dX (33) and A2 (35)
    against their plain versions, f32 (1e-4 of the output's scale: A2 sums
    up to 180,000 rows in another order) and bf16; times per layer shape;
-7. training path, every step through ``make_train_step``: the launch counts
+9. training path, every step through ``make_train_step``: the launch counts
    of the first step (A1 35 forward + 33 dX, A2 35; the forward's share is
    read where that step's ``loss_step`` returns), a second warm-up, then 5
    timed steps (ms per step median/min/max, and the phases forward, backward,
    clip + update between CUDA events of those same steps), peak memory,
    finite losses with ``proto_loss`` among them, no skipped step, parameters
    of both branches moved, and a torch.profiler window of a step;
-8. a small training step on the CPU and on the card, same weights, proposals
-   and sampling uniforms: at f32 the losses agree to 1e-3 and the gradients
-   to a cosine of 0.999; at bf16 (the main path's dtype) within a loose tier.
+10. a small training step on the CPU and on the card, same weights, proposals
+    and sampling uniforms: at f32 the losses agree to 1e-3 and the gradients
+    to a cosine of 0.999; at bf16 (the main path's dtype) within a loose tier.
 
 The last two lines of stdout are the card line and a JSON object; the line
-before them is the kernels JSON. For each kernel use it gives the launches
-of its path's counted run, the summed medians of the kernel and of its plain
-version over those launches, and ``bound_ms``: the least time the card could
-take for the same launches, per launch the larger of bytes / 3.35 TB/s (each
-operand read once, the output written once) and found-tap operations /
-989 TFLOP/s (bf16 tensor cores), from this run's operands. No single PyTorch
-call computes a gather-GEMM, so ``library_ms`` is null.
+before them is the kernels JSON. For each use of A1 and A2 it gives the
+launches of its path's counted run, the summed medians of the kernel and of
+its plain version over those launches, and ``bound_ms``: the least time the
+card could take for the same launches, per launch the larger of bytes /
+3.35 TB/s (each operand read once, the output written once) and found-tap
+operations / 989 TFLOP/s (bf16 tensor cores; 67 TFLOP/s for the f32 operands
+of two probes), from this run's operands. For
+G1-G4 ``launches`` counts the probe entry point's run, and the times and the
+bound are summed over one launch at each of the kernel's probes (``uses``
+lists them, and the 9 layer shapes beside A1). No single PyTorch call
+computes a gather-GEMM, so ``library_ms`` is null except for G4, the gather
+alone, where it is ``torch.index_select``'s time.
 """
 import json
 import math
@@ -62,10 +85,13 @@ import torch
 from cpd_tpu_torch.models.backbone3d import build_branch_rulebooks, stage_grids
 from cpd_tpu_torch.models.bev import height_compression
 from cpd_tpu_torch.models.detector import VoxelRCNN, keys_from_frame
+from cpd_tpu_torch.ops import cuda_build
 from cpd_tpu_torch.ops import gather_gemm as a1
+from cpd_tpu_torch.ops import gather_probes as gp
 from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch.ops.voxelizer import voxelize_batch
 from cpd_tpu_torch.parallel import init_state, make_train_step
+from cpd_tpu_torch.probes import gather as probes
 from cpd_tpu_torch.utils.synthetic import (make_lidar_frame, make_tiny_train_batch,
                                            make_train_batch)
 from cpd_tpu_torch.utils.weights import seeded_state_dict
@@ -88,14 +114,21 @@ SMALL = dict(num_classes=3, point_cloud_range=(-8.0, -8.0, -2.0, 8.0, 8.0, 4.0),
              rpn_nms={"NMS_THRESH": 0.8, "NMS_PRE_MAXSIZE": 256})
 N_POINTS = 200_000
 TIMED_LOOPS = 5
-A1_PER_FORWARD = 21
+# sparse convs of one forward: 21 with the sparse tail; the dense tail runs
+# stage 4 (down4 + 4) and conv_out as dense conv3d, which leaves conv_input
+# + 4, down2 + 4, down3 + 4
+A1_PER_FORWARD = {False: 21, True: 15}
+PROBE_ITERS = 5
+PROBE_TILE = 256  # rows per tile of G4's output layout on the layer shapes
 # one training step at mm=True: branch 0 has 21 sparse convs, the light branch
 # 1 has 14 (one block at stages 2-4, no conv_out); every conv has a dW, and
 # every conv but the two conv_input (voxel features are data) a dX
 TRAIN_A1_FORWARD, TRAIN_A1_DX, TRAIN_A2 = 35, 33, 35
 TRAIN_BATCH = 2
 HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
+# peak rate for the operands' type: bf16 on the tensor cores; f32 products
+# keep their precision only outside them
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 OPT_CFG = {"OPTIMIZER": "adam_onecycle", "LR": 0.003, "WEIGHT_DECAY": 1e-5,
            "GRAD_NORM_CLIP": 32}
 
@@ -112,34 +145,37 @@ def seeded_model(cfg, seed, device):
     return model.eval().to(device)
 
 
-def paired_median_ms(fn_a, fn_b, reps=5):
-    """Median single-call device times (CUDA events) of two versions, run in
-    turns (a b, b a, ...) after a warm-up of each."""
-    fn_a()
-    fn_b()
-    times = ([], [])
+def paired_median_ms(*fns, reps=5):
+    """Median single-call device times (CUDA events) of two or more versions,
+    run in turns (a b c, c b a, ...) after a warm-up of each."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
     for r in range(reps):
-        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+        for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            (fn_a, fn_b)[i]()
+            fns[i]()
             end.record()
             end.synchronize()
             times[i].append(start.elapsed_time(end))
-    return statistics.median(times[0]), statistics.median(times[1])
+    return tuple(statistics.median(t) for t in times)
 
 
-def launch_bound(operands, out_numel, out_bytes_per_elem):
-    """The least a launch on these operands could cost the card: (bytes,
-    operations, milliseconds, which limit). Every operand is read once and
-    the output written once at the card's memory rate; each found tap costs
-    2 * Cin * Cout operations at its bf16 tensor-core rate; the bound is the
-    larger of the two times."""
-    table, idx, found, other = operands
-    nbytes = sum(t.numel() * t.element_size() for t in operands) + out_numel * out_bytes_per_elem
-    ops = 2.0 * float(found.sum()) * table.shape[-1] * other.shape[-1]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+def launch_bound(tensors, out_bytes, ops, dtype):
+    """The least a launch could cost the card: (bytes, operations,
+    milliseconds, which limit). Every operand in ``tensors`` is read once and
+    ``out_bytes`` written once at the card's memory rate; ``ops`` run at its
+    peak rate for operands of ``dtype``; the bound is the larger of the two
+    times."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None) + out_bytes
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
     return nbytes, ops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def found_tap_ops(idx, found, cin, cout):
+    """2 * Cin * Cout operations for each found tap (every tap without ``found``)."""
+    return 2.0 * float(idx.numel() if found is None else found.sum()) * cin * cout
 
 
 def check_kernel(label, calls, kernel, plain, out_dtype):
@@ -184,8 +220,10 @@ def check_kernel(label, calls, kernel, plain, out_dtype):
                                bound_ms=0.0, bound_by={}, nbytes=0.0, ops=0.0)
         entry = shapes[key]
         entry["count"] += 1
-        nbytes, ops, lim, by = launch_bound((table, idx, found, other), out.numel(),
-                                            torch.empty(0, dtype=out_dtype).element_size())
+        nbytes, ops, lim, by = launch_bound(
+            (table, idx, found, other),
+            out.numel() * torch.empty(0, dtype=out_dtype).element_size(),
+            found_tap_ops(idx, found, table.shape[-1], other.shape[-1]), table.dtype)
         entry["nbytes"] += nbytes
         entry["ops"] += ops
         entry["bound_ms"] += lim
@@ -234,12 +272,14 @@ def a2_plain(table, idx, found, g_out, out_dtype):
 
 
 def cap_audit(model, batch):
-    frame = voxelize_batch(batch["points"], model.vox_spec, batch["points_valid"])
-    keys = keys_from_frame(frame, model.grid)
-    rbs = build_branch_rulebooks(keys, model.grid, model.backbone.caps)
+    """Valid sites per stage of one backbone forward against the stage caps;
+    raises where a cap is full (sites may have been dropped)."""
+    with torch.no_grad():
+        frame = voxelize_batch(batch["points"], model.vox_spec, batch["points_valid"])
+        out = model.backbone(frame.features, keys_from_frame(frame, model.grid))
     occ = {"stage0": (int(frame.valid.sum(-1).max()), model.vox_spec.max_voxels)}
-    for name, cap in zip(("down2", "down3", "down4", "conv_out"), model.backbone.caps):
-        occ[name] = (int(rbs[name].out_valid.sum(-1).max()), cap)
+    for name, cap in zip(("x_conv2", "x_conv3", "x_conv4", "encoded"), model.backbone.caps):
+        occ[name] = (int((out[name][1] != sparse.INVALID_KEY).sum(-1).max()), cap)
     print(f"stage occupancy / cap: {occ}")
     for name, (n, cap) in occ.items():
         if n >= cap:
@@ -262,12 +302,17 @@ def stage_breakdown(model, batch):
         step("voxelize", lambda: voxelize_batch(batch["points"], model.vox_spec,
                                                 batch["points_valid"]))
         keys = keys_from_frame(state["voxelize"], model.grid)
-        step("rulebooks", lambda: build_branch_rulebooks(keys, model.grid, model.backbone.caps))
+        step("rulebooks", lambda: build_branch_rulebooks(
+            keys, model.grid, model.backbone.caps, dense_tail=model.backbone.dense_tail))
+        # with the dense tail this stage holds the dense stage 4 and conv_out too
         step("sparse_convs", lambda: model.backbone.branch0(state["voxelize"].features,
                                                             state["rulebooks"]))
+        raw = dict(state["sparse_convs"])
+        bev_map = raw.pop("encoded_bev", None)
         grids = stage_grids(model.grid)
-        backbone_out = {k: (f, ky, grids[k]) for k, (f, ky) in state["sparse_convs"].items()}
-        step("bev", lambda: model.bev_backbone(height_compression(*backbone_out["encoded"])))
+        backbone_out = {k: (f, ky, grids[k]) for k, (f, ky) in raw.items()}
+        step("bev", lambda: model.bev_backbone(
+            height_compression(*backbone_out["encoded"]) if bev_map is None else bev_map))
         step("dense_head", lambda: model.dense_head(state["bev"]))
         rpn = dict(model.rpn_nms, NMS_POST_MAXSIZE=model.num_rois_test)
         step("proposals", lambda: model.dense_head.generate_predicted_boxes(
@@ -664,6 +709,240 @@ def small_train_check(dtype):
                                  f"cosine {cos}, norm ratio {ratio}")
 
 
+PROBE_KERNELS = ("gather_gemm_flat", "gather_gemm_per_tap", "lane_gather_gemm", "lane_gather")
+
+
+def hold_against_plain(label, kernel, plain, bf16, exact=False):
+    """One probe kernel launch against its plain version on the same
+    operands (functions of no arguments, f32 results): bit-equal with
+    ``exact``, else within 1e-4 of the output's scale plus rtol 1e-4 for f32
+    operands and within rtol 1e-2 + 1e-2 of the scale for bf16 ones; a second
+    launch must give the same bits. Returns (largest error, output bytes)."""
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != torch.float32:
+        raise AssertionError(f"{label}: kernel gave {out.dtype} {tuple(out.shape)}, plain "
+                             f"{ref.dtype} {tuple(ref.shape)}")
+    if not torch.equal(out, kernel()):
+        raise AssertionError(f"{label}: two launches gave different bits")
+    err = (out - ref).abs()
+    max_err = err.max().item() if err.numel() else 0.0
+    if exact:
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{label}: not bit-equal to the plain version, max err {max_err}")
+    else:
+        scale = max(ref.abs().max().item(), 1e-3)
+        tol = 1e-2 if bf16 else 1e-4
+        if not bool((err <= tol * ref.abs() + tol * scale).all()):
+            raise AssertionError(f"{label} mismatch: max err {max_err} at output scale {scale}")
+    return max_err, out.numel() * out.element_size()
+
+
+def probe_use(kernel_name, at, kernel, plain, third, tensors, ops, bf16):
+    """Hold one probe kernel against its plain version on one set of
+    operands and time it in turns with the plain version and ``third``
+    (kernel A1 on the same operands, or for G4 the library call). Returns
+    the record of this use for the kernels line."""
+    gather_only = kernel_name == "lane_gather"
+    max_err, out_bytes = hold_against_plain(f"{kernel_name} at {at}", kernel, plain, bf16,
+                                            exact=gather_only)
+    ms, plain_ms, third_ms = paired_median_ms(kernel, plain, third)
+    nbytes, _, bound_ms, by = launch_bound(tensors, out_bytes, ops,
+                                           torch.bfloat16 if bf16 else torch.float32)
+    beside = "index_select" if gather_only else "A1"
+    print(f"{kernel_name} at {at}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {beside} "
+          f"{third_ms:.4f} ms (medians of 5, run in turns), bound {bound_ms:.5f} ms by {by} "
+          f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP on found taps), max err {max_err:.3e}")
+    return {"at": at, "ms": ms, "plain_ms": plain_ms, "a1_ms": None if gather_only else third_ms,
+            "library_ms": third_ms if gather_only else None, "bound_ms": bound_ms,
+            "bound_by": by, "max_abs_err": max_err}
+
+
+def probes_on_own_operands(dev, uses):
+    """(a) G1 at P1, P2, P4 and P5, G2 at P3, G3 at P6, G4 at P7: each
+    probe's own operands, made by ``cpd_tpu_torch.probes.gather``."""
+    for name, probe in probes.PROBES.items():
+        ops = probes.make_operands(name, dev)
+        third = probes.a1_call(ops) or probes.baseline_calls(ops)["index_select"]
+        flops = 0.0 if ops.w is None else found_tap_ops(ops.idx, ops.found, probe.cin, probe.cout)
+        uses[probe.kernel].append(probe_use(
+            probe.kernel, name, probes.kernel_call(ops), probes.plain_call(ops), third,
+            (ops.table, ops.idx, ops.found, ops.w), flops,
+            bf16=probe.round_bf16 or ops.table.dtype == torch.bfloat16))
+        del ops, third
+        torch.cuda.empty_cache()
+
+
+def probes_on_layer_shapes(convs, uses):
+    """(b) All four probe kernels beside A1 on the real bf16 operands of each
+    layer shape among the recorded convs of a forward (batch 1)."""
+    seen = set()
+    for name, table, idx, found, w in convs:
+        (_, n, k), cin, cout = idx.shape, table.shape[-1], w.shape[-1]
+        if (n, k, cin, cout) in seen:
+            continue
+        seen.add((n, k, cin, cout))
+        t, i, f = table[0], idx[0], found[0]
+        t_t, w3 = t.T.contiguous(), w.reshape(k, cin, cout)
+        flat = i.reshape(-1)[:n // PROBE_TILE * PROBE_TILE * k]
+        at = f"{name} N={n} K={k} C={cin}->{cout} found={f.float().mean().item():.3f}"
+        flops = found_tap_ops(i, f, cin, cout)
+
+        def a1_f32():
+            return a1.gather_gemm(table, idx, found, w, torch.float32)
+
+        uses["gather_gemm_flat"].append(probe_use(
+            "gather_gemm_flat", at, lambda: gp.gather_gemm_flat(t, i, f, w),
+            lambda: gp.gather_gemm_flat_reference(t, i, f, w), a1_f32, (t, i, f, w), flops, True))
+        uses["gather_gemm_per_tap"].append(probe_use(
+            "gather_gemm_per_tap", at, lambda: gp.gather_gemm_per_tap(t, i, f, w3),
+            lambda: gp.gather_gemm_per_tap_reference(t, i, f, w3), a1_f32, (t, i, f, w), flops,
+            True))
+        uses["lane_gather_gemm"].append(probe_use(
+            "lane_gather_gemm", at, lambda: gp.lane_gather_gemm(t_t, i, w, f),
+            lambda: gp.lane_gather_gemm_reference(t_t, i, w, f), a1_f32, (t, i, f, w), flops,
+            True))
+        uses["lane_gather"].append(probe_use(
+            "lane_gather", at, lambda: gp.lane_gather(t_t, i, PROBE_TILE),
+            lambda: gp.lane_gather_reference(t_t, i, PROBE_TILE),
+            lambda: torch.index_select(t_t, 1, flat), (t_t, i), 0.0, True))
+    if len(seen) != 9:
+        raise AssertionError(f"{len(seen)} layer shapes among the recorded convs, want 9")
+
+
+def probe_phase(dev, convs):
+    """Phase 4. Returns the kernels-line entries of G1-G4."""
+    uses = {k: [] for k in PROBE_KERNELS}
+    probes_on_own_operands(dev, uses)
+    probes_on_layer_shapes(convs, uses)
+    # this slice's path: the probes' entry point, with the counts read around it
+    wrappers = {k: getattr(gp, k) for k in PROBE_KERNELS}
+    for fn in wrappers.values():
+        fn.launches = 0
+    for name in probes.PROBES:
+        probes.run_probe(name, dev, PROBE_ITERS)
+    torch.cuda.synchronize()
+    entries = []
+    for k, fn in wrappers.items():
+        if fn.launches == 0:
+            raise AssertionError(f"the probe entry point never launched {k}")
+        own = [u for u in uses[k] if u["at"] in probes.PROBES]
+        by = {}
+        for u in own:
+            by[u["bound_by"]] = by.get(u["bound_by"], 0.0) + u["bound_ms"]
+        library = [u["library_ms"] for u in own if u["library_ms"] is not None]
+        entries.append({
+            "name": k, "path": "probes", "route": "cuda", "source": f"cpd_tpu_torch/csrc/{k}.cu",
+            "replaces": "; ".join(probes.PROBES[u["at"]].replaces for u in own),
+            "launches": fn.launches, "max_abs_err": max(u["max_abs_err"] for u in uses[k]),
+            "ms": sum(u["ms"] for u in own), "plain_ms": sum(u["plain_ms"] for u in own),
+            "bound_ms": sum(u["bound_ms"] for u in own), "bound_by": max(by, key=by.get),
+            "library_ms": sum(library) if library else None, "uses": uses[k]})
+    print("probe entry point launches: "
+          + ", ".join(f"{k} {fn.launches}" for k, fn in wrappers.items()))
+    return entries
+
+
+def recorded_forward(model, batch):
+    """The (name, table, idx, found, W) of every A1 launch of one forward."""
+    want = A1_PER_FORWARD[model.backbone.dense_tail]
+    with KernelRecorder() as rec, torch.no_grad():
+        model(batch)
+    convs = rec.calls["forward"]
+    if len(convs) != want or rec.calls["dw"]:
+        raise AssertionError(f"recorded {len(convs)} A1 and {len(rec.calls['dw'])} A2 launches "
+                             f"in one forward, want {want} and 0")
+    return convs
+
+
+def predict_phase(model, batch, what, timed_loops):
+    """One predict path at full width: launch count, shapes, finite outputs,
+    2 warm-ups, timed loops, peak memory, stage breakdown, profiler window.
+    Returns the A1 launches of one counted predict."""
+    want_launches = A1_PER_FORWARD[model.backbone.dense_tail]
+    a1.gather_gemm.launches = 0
+    out = model.predict(batch)
+    torch.cuda.synchronize()
+    launches = a1.gather_gemm.launches
+    if launches != want_launches:
+        raise AssertionError(f"{what}: A1 launched {launches} times in one forward, "
+                             f"want {want_launches}")
+    n_rois = BENCH["num_rois_test"]
+    want = {"pred_boxes": (1, n_rois, 7), "pred_scores": (1, n_rois),
+            "pred_labels": (1, n_rois), "pred_valid": (1, n_rois)}
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes != want:
+        raise AssertionError(f"{what}: predict shapes {shapes}, want {want}")
+    for k, v in out.items():
+        if not torch.isfinite(v.float()).all():
+            raise AssertionError(f"{what}: non-finite values in {k}")
+    print(f"predict, {what}: {int(out['pred_valid'].sum())} valid detections of "
+          f"{out['pred_valid'].numel()} slots; {launches} A1 launches; shapes {shapes}")
+
+    model.predict(batch)  # second warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a1.gather_gemm.launches = 0
+    loop_s = []
+    for _ in range(timed_loops):
+        t0 = time.perf_counter()
+        model.predict(batch)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t0)
+    if a1.gather_gemm.launches != want_launches * timed_loops:
+        raise AssertionError(f"{what}: A1 launched {a1.gather_gemm.launches} times in "
+                             f"{timed_loops} forwards")
+    fps = sorted(1.0 / s for s in loop_s)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"predict, {what}: frames/s over {timed_loops} loops: median "
+          f"{statistics.median(fps):.3f} min {fps[0]:.3f} max {fps[-1]:.3f}; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    runs = [stage_breakdown(model, batch) for _ in range(3)]
+    breakdown = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    print(f"predict, {what}: stage ms (host clock, synchronised, median of 3): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in breakdown.items()))
+    device_profile(lambda: model.predict(batch), f"predict ({what})",
+                   1e3 / statistics.median(fps))
+    return launches
+
+
+def compare_tails(sparse_model, dense_model, batch):
+    """Dense against sparse tail on the same frame and weights: the key sets
+    of x_conv4 and encoded equal; features and the heatmap within the bf16
+    tier (3% of the scale); and the RoI head's final scores, on the sparse
+    run's proposals for both (the head is discontinuous in its proposals, and
+    those follow the heatmap's rounding), within 0.05."""
+    models = (sparse_model, dense_model)
+    with torch.no_grad():
+        s_out, d_out = (m(batch) for m in models)
+        proposals = {k: s_out[k] for k in ("rois", "roi_scores", "roi_labels", "roi_valid")}
+        heads = [m.roi_head(proposals, o["backbone_out"]) for m, o in zip(models, (s_out, d_out))]
+        kept = [int(m.post_processing(o)["pred_valid"].sum()) for m, o in zip(models, (s_out, d_out))]
+
+    def close(name, a, b):
+        a, b = a.float(), b.float()
+        err, scale = (a - b).abs().max().item(), max(a.abs().max().item(), 1e-3)
+        print(f"dense vs sparse tail, {name}: max err {err:.3e} (scale {scale:.3e})")
+        if not err <= 0.03 * scale:
+            raise AssertionError(f"dense and sparse tail disagree at {name}: {err} vs {scale}")
+
+    for name in ("x_conv4", "encoded"):
+        (fs, ks, _), (fd, kd, _) = s_out["backbone_out"][name], d_out["backbone_out"][name]
+        if not torch.equal(ks, kd):
+            raise AssertionError(f"dense and sparse tail give other key sets at {name}")
+        close(name, fs, fd)
+    close("hm", s_out["head_preds"]["hm"], d_out["head_preds"]["hm"])
+    valid = proposals["roi_valid"]
+    scores = [torch.sigmoid(h["batch_cls_preds"][..., 0].float())[valid] for h in heads]
+    if not all(bool(torch.isfinite(sc).all()) for sc in scores) or not int(valid.sum()):
+        raise AssertionError("no valid RoI, or non-finite RoI scores")
+    diff = (scores[0] - scores[1]).abs().max().item()
+    print(f"dense vs sparse tail, final scores of the same {int(valid.sum())} RoIs: max "
+          f"difference {diff:.4f}; detections kept by each run's own predict: {kept}")
+    if diff > 0.05:
+        raise AssertionError(f"dense and sparse tail disagree in their final scores: {diff}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -673,75 +952,48 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    secs = a1.build(verbose=True)
-    print(f"A1 + A2 build: {secs:.1f} s compiling (two nvcc processes side by side)", flush=True)
+    secs = cuda_build.build(verbose=True)
+    print(f"kernel build: {secs:.1f} s compiling {len(cuda_build.SOURCES)} sources (one nvcc "
+          f"process each, side by side)", flush=True)
 
     dev = torch.device("cuda")
-    model = seeded_model(BENCH, 0, dev)
+    src = "cpd_tpu_torch/csrc/gather_gemm.cu"
     pts, valid = make_lidar_frame(np.random.default_rng(0), N_POINTS)
     batch = {"points": torch.from_numpy(pts)[None].to(dev),
              "points_valid": torch.from_numpy(valid)[None].to(dev)}
-    cap_audit(model, batch)
 
-    with KernelRecorder() as rec, torch.no_grad():
-        model(batch)
-    convs = rec.calls["forward"]
-    if len(convs) != A1_PER_FORWARD or rec.calls["dw"]:
-        raise AssertionError(f"recorded {len(convs)} A1 and {len(rec.calls['dw'])} A2 launches "
-                             f"in one forward, want {A1_PER_FORWARD} and 0")
+    # the sparse tail: A1 on its 21 launches, then the probes on the same operands
+    sparse_model = seeded_model(BENCH, 0, dev)
+    cap_audit(sparse_model, batch)
+    convs = recorded_forward(sparse_model, batch)
     max_err, shape_times = check_kernel("A1", convs, a1_kernel, a1_plain, torch.bfloat16)
-    del convs, rec
-
-    a1.gather_gemm.launches = 0
-    out = model.predict(batch)
-    torch.cuda.synchronize()
-    launches = a1.gather_gemm.launches
-    if launches != A1_PER_FORWARD:
-        raise AssertionError(f"A1 launched {launches} times in one forward, "
-                             f"want {A1_PER_FORWARD}")
-    want = {"pred_boxes": (1, BENCH["num_rois_test"], 7), "pred_scores": (1, BENCH["num_rois_test"]),
-            "pred_labels": (1, BENCH["num_rois_test"]), "pred_valid": (1, BENCH["num_rois_test"])}
-    if {k: tuple(v.shape) for k, v in out.items()} != want:
-        raise AssertionError(f"predict shapes {({k: tuple(v.shape) for k, v in out.items()})}, "
-                             f"want {want}")
-    for k, v in out.items():
-        if not torch.isfinite(v.float()).all():
-            raise AssertionError(f"non-finite values in {k}")
-    n_det = int(out["pred_valid"].sum())
-    print(f"predict: {n_det} valid detections of {out['pred_valid'].numel()} slots; "
-          f"shapes { {k: tuple(v.shape) for k, v in out.items()} }")
-
-    model.predict(batch)  # second warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    a1.gather_gemm.launches = 0
-    loop_s = []
-    for _ in range(TIMED_LOOPS):
-        t0 = time.perf_counter()
-        out = model.predict(batch)
-        torch.cuda.synchronize()
-        loop_s.append(time.perf_counter() - t0)
-    if a1.gather_gemm.launches != A1_PER_FORWARD * TIMED_LOOPS:
-        raise AssertionError(f"A1 launched {a1.gather_gemm.launches} times in "
-                             f"{TIMED_LOOPS} forwards")
-    fps = sorted(1.0 / s for s in loop_s)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"predict frames/s over {TIMED_LOOPS} loops: median {statistics.median(fps):.3f} "
-          f"min {fps[0]:.3f} max {fps[-1]:.3f}; peak memory {peak / 2**30:.2f} GiB")
-    runs = [stage_breakdown(model, batch) for _ in range(3)]
-    breakdown = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    print("stage ms (host clock, synchronised, median of 3): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in breakdown.items()))
-    device_profile(lambda: model.predict(batch), "predict", 1e3 / statistics.median(fps))
-    kernels = [kernel_entry("gather_gemm", "predict", "cpd_tpu_torch/csrc/gather_gemm.cu",
+    probe_entries = probe_phase(dev, convs)
+    del convs
+    torch.cuda.empty_cache()
+    print(f"probe phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    launches = predict_phase(sparse_model, batch, "sparse tail", timed_loops=3)
+    kernels = [kernel_entry("gather_gemm", "predict, sparse tail", src,
                             "cpd_tpu/ops/pallas_conv.py:77", launches, max_err, shape_times)]
-    del model, batch, out
+
+    # the dense tail: the configuration of the JAX package's bench
+    dense_model = seeded_model(dict(BENCH, dense_tail=True), 0, dev)
+    cap_audit(dense_model, batch)
+    convs = recorded_forward(dense_model, batch)
+    max_err, shape_times = check_kernel("A1 dense-tail predict", convs, a1_kernel, a1_plain,
+                                        torch.bfloat16)
+    del convs
+    launches = predict_phase(dense_model, batch, "dense tail", TIMED_LOOPS)
+    kernels.append(kernel_entry("gather_gemm", "predict, dense tail", src,
+                                "cpd_tpu/ops/pallas_conv.py:77", launches, max_err, shape_times))
+    compare_tails(sparse_model, dense_model, batch)
+    del sparse_model, dense_model, batch
     torch.cuda.empty_cache()
 
     small_input_check()
     print(f"predict phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels += training_phase(dev)
+    kernels += probe_entries
     small_train_check(torch.float32)
     small_train_check(torch.bfloat16)
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,12 +1,13 @@
 """The CPD detector (port of cpd_tpu/models/detector.py::VoxelRCNN).
 
-voxelize (MeanVFE fused) -> VoxelResBackBone8x (sparse, kernel A1) ->
+voxelize (MeanVFE fused) -> VoxelResBackBone8x (sparse convs through kernel
+A1; with ``dense_tail=True`` stage 4 and conv_out as dense conv3d) ->
 HeightCompression -> BaseBEVBackbone -> CenterHead proposals ->
 VoxelRCNNProtoHead -> final NMS (``predict``, eval mode), or in training
 mode -> dense-head and RoI-head losses (``loss_step``), with the MM siamese
 branch encoding the proto-completed view when ``mm=True``. The constructor
 keeps the JAX module's field names, so the JAX package's model kwargs carry
-over. The dense tail and the YAML-driven ``build_network`` are not ported.
+over. The YAML-driven ``build_network`` is not ported.
 """
 from __future__ import annotations
 
@@ -48,8 +49,6 @@ class VoxelRCNN(nn.Module):
                  bev_num_filters=(128, 256), bev_upsample_strides=(1, 2),
                  bev_num_upsample_filters=(256, 256), roi_head_cfg=None):
         super().__init__()
-        if dense_tail:
-            raise NotImplementedError("the dense tail is not ported yet (dense_tail=False)")
         self.mm = mm
         self.num_rois = num_rois
         self.num_rois_test = num_rois_test
@@ -61,7 +60,8 @@ class VoxelRCNN(nn.Module):
         nx, ny, nz = self.vox_spec.grid_size
         self.grid = GridSpec(nx, ny, nz + 1)  # spconv convention: +1 on z
         self.backbone = VoxelResBackBone8x(self.grid, num_point_features,
-                                           backbone_filters, backbone_caps, mm=mm)
+                                           backbone_filters, backbone_caps, mm=mm,
+                                           dense_tail=dense_tail)
         grids = stage_grids(self.grid)
         c3 = backbone_filters[3]
         self.bev_backbone = BaseBEVBackbone(
@@ -92,8 +92,11 @@ class VoxelRCNN(nn.Module):
             feats_mm = frame_mm.features
             keys_mm = keys_from_frame(frame_mm, self.grid)
         backbone_out = self.backbone(frame.features, keys, feats_mm, keys_mm)
-        enc_feats, enc_keys, enc_grid = backbone_out["encoded"]
-        bev = height_compression(enc_feats, enc_keys, enc_grid)
+        if "encoded_bev" in backbone_out:
+            # the dense tail already made the BEV map (no sparse round trip)
+            bev = backbone_out.pop("encoded_bev")
+        else:
+            bev = height_compression(*backbone_out["encoded"])
         return self._bev_to_heads(bev, backbone_out, batch, sampling_uniforms, generator)
 
     def _bev_to_heads(self, bev, backbone_out, batch, sampling_uniforms, generator):

@@ -15,10 +15,9 @@
   the same bits from run to run.
 
 Each source's header says what bounds its kernel on an H100 and what the
-design does about it. Both are compiled with ``nvcc`` for ``sm_90a`` into
-shared libraries with a plain C interface at first use (one ``nvcc`` process
-per source, started together), into ``cpd_tpu_torch/_build/``, and called
-through ``ctypes`` on PyTorch's current stream.
+design does about it. Both are built and bound by ``ops/cuda_build.py``
+(``nvcc`` for ``sm_90a`` at first use, plain C entry points through
+``ctypes``) and launched on PyTorch's current stream.
 
 A wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors it computes the plain version
@@ -28,88 +27,17 @@ kernel does not take; for CPU tensors it computes the plain version
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCES = {"gather_gemm": _PKG / "csrc" / "gather_gemm.cu",
-           "gather_gemm_dw": _PKG / "csrc" / "gather_gemm_dw.cu"}
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from .cuda_build import DTYPE_CODES as _DTYPE_CODES, load, on_cuda as _on_cuda
+
 # rows of (B*N) that one block of A2 sums before it writes its partial tile
 DW_ROWS_PER_CHUNK = 2048
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = {
     "gather_gemm": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "gather_gemm_dw": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
-_libs = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: the gather-GEMM kernel needs the CUDA toolkit")
-    return str(path)
-
-
-def library_path(name: str) -> Path:
-    """The built library's path, keyed by a hash of the source and flags."""
-    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libcpd_{name}_{digest.hexdigest()[:12]}.so"
-
-
-def build(verbose: bool = False) -> float:
-    """Compile every kernel library whose build does not exist yet, one nvcc
-    process per source, all started together. Returns the seconds spent
-    compiling (0.0 when every build was reused)."""
-    todo = [name for name in SOURCES if not library_path(name).exists()]
-    if not todo:
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        procs = []
-        for name in todo:
-            tmp_out = Path(tmp) / library_path(name).name
-            cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-                   "-o", str(tmp_out), str(SOURCES[name])]
-            procs.append((name, tmp_out, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        failures = []
-        for name, tmp_out, proc in procs:
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                failures.append(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{err}")
-                continue
-            if verbose:
-                print(err, end="")
-            os.replace(tmp_out, library_path(name))  # atomic: never a partial library
-        if failures:
-            raise RuntimeError("\n".join(failures))
-    return time.perf_counter() - t0
-
-
-def _load(name: str):
-    if name not in _libs:
-        build()
-        fn = getattr(ctypes.CDLL(str(library_path(name))), f"cpd_{name}")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _libs[name] = fn
-    return _libs[name]
 
 
 def _gather_rows(table, idx, found):
@@ -152,23 +80,6 @@ def _check_rulebook(table, idx, found):
         raise TypeError(f"idx must be int32 and found bool, got {idx.dtype}/{found.dtype}")
 
 
-def _on_cuda(named_tensors) -> bool:
-    """False for CPU operands, True for CUDA ones (which must be contiguous
-    and on one card); raises on mixed or other devices."""
-    devices = {t.device for _, t in named_tensors}
-    if len(devices) != 1:
-        raise ValueError(f"all operands must be on one device, got {devices}")
-    device = devices.pop()
-    if device.type == "cpu":
-        return False
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    for name, t in named_tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return True
-
-
 def _check(table, idx, found, w_flat, out_dtype):
     _check_rulebook(table, idx, found)
     b, v, cin = table.shape
@@ -192,7 +103,7 @@ def gather_gemm(table, idx, found, w_flat, out_dtype=torch.float32):
     _check(table, idx, found, w_flat, out_dtype)
     if not _on_cuda((("table", table), ("idx", idx), ("found", found), ("w_flat", w_flat))):
         return gather_gemm_reference(table, idx, found, w_flat, out_dtype)
-    fn = _load("gather_gemm")
+    fn = load("gather_gemm", _ARGTYPES["gather_gemm"])
     b, v, cin = table.shape
     n, k = idx.shape[1:]
     cout = w_flat.shape[1]
@@ -232,7 +143,7 @@ def gather_gemm_dw(table, idx, found, g_out):
     out = torch.empty((k * cin, cout), dtype=torch.float32, device=table.device)
     if b * n == 0 or out.numel() == 0:
         return out.zero_()
-    fn = _load("gather_gemm_dw")
+    fn = load("gather_gemm_dw", _ARGTYPES["gather_gemm_dw"])
     chunks = -(-(b * n) // DW_ROWS_PER_CHUNK)
     partial = torch.empty((chunks, k * cin, cout), dtype=torch.float32, device=table.device)
     with torch.cuda.device(table.device):

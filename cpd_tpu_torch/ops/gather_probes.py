@@ -1,0 +1,248 @@
+"""Kernels G1-G4: the gather formulations of the sparse convolution, side by
+side with kernel A1 (``ops/gather_gemm.py``).
+
+The JAX package's probe scripts asked one question of the TPU in seven
+spellings: how should the gathered rows reach the matrix unit? On Hopper they
+reduce to four kernels, each a design of its own:
+
+* G1 ``gather_gemm_flat`` (``csrc/gather_gemm_flat.cu``): the tile's whole
+  flattened operand ``(TILE, K*Cin)`` gathered first, then one product.
+  Replaces ``scripts/exp_pallas_gather.py:82``,
+  ``scripts/exp_gather_variants.py:107``, ``scripts/exp_r2_lowering.py:213``
+  and ``scripts/exp_r2h_gather2.py:99``.
+* G2 ``gather_gemm_per_tap`` (``csrc/gather_gemm_per_tap.cu``): one product
+  per tap over the rows that found it, summed in tap order. Replaces
+  ``scripts/exp_tal_gather.py:86``.
+* G3 ``lane_gather_gemm`` (``csrc/lane_gather_gemm.cu``): the same product
+  from a table stored transposed ``(C, V)``. Replaces
+  ``scripts/exp_r2i_lane_gather.py:75``.
+* G4 ``lane_gather`` (``csrc/lane_gather.cu``): the transposed gather alone.
+  Replaces ``scripts/exp_r2i_lane_gather.py:96``.
+
+Tables and rulebooks are unbatched here, as in the probes: table ``(V, Cin)``
+(``(C, V)`` for G3 and G4), idx and found ``(N, K)``. Every output is f32.
+Each wrapper launches its kernel for CUDA tensors and raises on anything the
+kernel does not take; for CPU tensors it computes the plain PyTorch version
+beside it (``*_reference``). ``<wrapper>.launches`` counts kernel launches.
+No model path calls these kernels: they are run by
+``python -m cpd_tpu_torch.probes.gather`` and by ``chip_smoke.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .cuda_build import DTYPE_CODES, load, on_cuda
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "gather_gemm_flat": [_PTR] * 5 + [_INT] * 7 + [_PTR],
+    "gather_gemm_per_tap": [_PTR] * 5 + [_INT] * 6 + [_PTR],
+    "lane_gather_gemm": [_PTR] * 5 + [_INT] * 6 + [_PTR],
+    "lane_gather": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+}
+# taps a rulebook may have: kernel G1 keeps a tile's (64, K) rows in shared memory
+MAX_TAPS = 256
+
+
+def _gathered(table, idx, found):
+    """(N, K, Cin) f32: table rows at idx, zero where not found or where idx
+    lies outside the table."""
+    ok = (idx >= 0) & (idx < table.shape[0])
+    if found is not None:
+        ok = ok & found
+    g = table.float()[torch.where(ok, idx.long(), 0)]
+    return torch.where(ok[..., None], g, 0.0)
+
+
+def _rounded(t, round_bf16: bool):
+    return t.bfloat16().float() if round_bf16 else t.float()
+
+
+def gather_gemm_flat_reference(table, idx, found, w_flat, round_bf16=False):
+    """Plain PyTorch version of kernel G1: gather, where, einsum, in f32 (the
+    operands rounded to bf16 first with ``round_bf16``).
+
+    table (V, Cin); idx (N, K); found (N, K) or None; w_flat (K*Cin, Cout)
+    -> (N, Cout) f32."""
+    k = idx.shape[-1]
+    w = _rounded(w_flat, round_bf16).reshape(k, table.shape[-1], -1)
+    return torch.einsum("nkc,kcd->nd", _gathered(_rounded(table, round_bf16), idx, found), w)
+
+
+def gather_gemm_per_tap_reference(table, idx, found, w):
+    """Plain PyTorch version of kernel G2: per tap a gather, a where and a
+    product, summed in tap order in f32.
+
+    table (V, Cin); idx/found (N, K); w (K, Cin, Cout) -> (N, Cout) f32."""
+    out = torch.zeros((idx.shape[0], w.shape[-1]), dtype=torch.float32, device=table.device)
+    for k in range(idx.shape[-1]):
+        out = out + _gathered(table, idx[:, k:k + 1], found[:, k:k + 1])[:, 0] @ w[k].float()
+    return out
+
+
+def lane_gather_gemm_reference(table_t, idx, w_flat, found=None):
+    """Plain PyTorch version of kernel G3: gather along the voxel axis of the
+    transposed table, reorder to (N, K*C), one product, in f32.
+
+    table_t (C, V); idx (N, K); w_flat (K*C, Cout); found (N, K) or None
+    -> (N, Cout) f32."""
+    c, v = table_t.shape
+    n, k = idx.shape
+    ok = (idx >= 0) & (idx < v)
+    if found is not None:
+        ok = ok & found
+    g = table_t.float()[:, torch.where(ok, idx.long(), 0).reshape(-1)]  # (C, N*K)
+    g = torch.where(ok.reshape(1, -1), g, 0.0)
+    return g.reshape(c, n, k).permute(1, 2, 0).reshape(n, k * c) @ w_flat.float()
+
+
+def lane_gather_reference(table_t, idx, tile: int):
+    """Plain PyTorch version of kernel G4: out[i, c, q] = table_t[c,
+    idx_flat[i * tile*K + q]] (0 for an idx outside the table).
+
+    table_t (C, V); idx (N, K) -> (N // tile, C, tile*K) f32; rows past the
+    last whole tile are not covered."""
+    c, v = table_t.shape
+    tiles, tq = idx.shape[0] // tile, tile * idx.shape[1]
+    flat = idx.reshape(-1)[:tiles * tq].long()
+    ok = (flat >= 0) & (flat < v)
+    g = torch.where(ok[None], table_t.float()[:, torch.where(ok, flat, 0)], 0.0)
+    return g.reshape(c, tiles, tq).permute(1, 0, 2).contiguous()
+
+
+def _check_table(name, table, idx, found, cin_axis: int):
+    if table.dim() != 2 or idx.dim() != 2:
+        raise ValueError(f"want {name} 2-d and idx (N, K); got {tuple(table.shape)}, "
+                         f"{tuple(idx.shape)}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if found is not None and (found.shape != idx.shape or found.dtype != torch.bool):
+        raise TypeError(f"found must be bool of idx's shape {tuple(idx.shape)}, got "
+                        f"{found.dtype} {tuple(found.shape)}")
+    if table.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {table.dtype}")
+    if idx.shape[1] > MAX_TAPS:
+        raise ValueError(f"at most {MAX_TAPS} taps, got {idx.shape[1]}")
+    v, cin = table.shape[1 - cin_axis], table.shape[cin_axis]
+    if max(v * cin, idx.numel() * max(cin, 1)) >= 2**31:
+        raise ValueError("tensor too large for the kernels' 32-bit row indices")
+
+
+def _check_weights(table, idx, w, cin: int):
+    k = idx.shape[1]
+    if w.dtype != table.dtype:
+        raise TypeError(f"table/w must share float32 or bfloat16, got {table.dtype}/{w.dtype}")
+    if w.numel() == 0 or w.shape[:-1].numel() != k * cin:
+        raise ValueError(f"shape mismatch: table {tuple(table.shape)}, idx {tuple(idx.shape)}, "
+                         f"w {tuple(w.shape)}")
+    if idx.shape[0] * w.shape[-1] >= 2**31:
+        raise ValueError("tensor too large for the kernels' 32-bit row indices")
+
+
+def _named(**tensors):
+    return tuple((k, v) for k, v in tensors.items() if v is not None)
+
+
+def _launch(name, fn, table, *args):
+    with torch.cuda.device(table.device):  # launch on the operands' card
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def gather_gemm_flat(table, idx, found, w_flat, round_bf16=False):
+    """out[n] = concat_k(found[n, k] ? table[idx[n, k]] : 0) @ w_flat in f32;
+    ``found=None`` reads every tap; ``round_bf16`` (f32 operands only) rounds
+    table and weights to bf16 inside the kernel. CUDA tensors run kernel G1;
+    CPU tensors the plain version."""
+    _check_table("table", table, idx, found, cin_axis=1)
+    if w_flat.dim() != 2:
+        raise ValueError(f"w_flat must be (K*Cin, Cout), got {tuple(w_flat.shape)}")
+    _check_weights(table, idx, w_flat, table.shape[1])
+    if round_bf16 and table.dtype != torch.float32:
+        raise TypeError("round_bf16 applies to float32 operands")
+    if not on_cuda(_named(table=table, idx=idx, found=found, w_flat=w_flat)):
+        return gather_gemm_flat_reference(table, idx, found, w_flat, round_bf16)
+    fn = load("gather_gemm_flat", _ARGTYPES["gather_gemm_flat"])
+    (v, cin), (n, k), cout = table.shape, idx.shape, w_flat.shape[1]
+    out = torch.empty((n, cout), dtype=torch.float32, device=table.device)
+    _launch("gather_gemm_flat", fn, table, table.data_ptr(), idx.data_ptr(),
+            None if found is None else found.data_ptr(), w_flat.data_ptr(), out.data_ptr(),
+            v, n, k, cin, cout, DTYPE_CODES[table.dtype], int(round_bf16))
+    gather_gemm_flat.launches += 1
+    return out
+
+
+gather_gemm_flat.launches = 0
+
+
+def gather_gemm_per_tap(table, idx, found, w):
+    """out[n] = sum_k (found[n, k] ? table[idx[n, k]] @ w[k] : 0), the taps
+    summed in order in f32; w is (K, Cin, Cout). CUDA tensors run kernel G2;
+    CPU tensors the plain version."""
+    _check_table("table", table, idx, found, cin_axis=1)
+    if found is None:
+        raise TypeError("gather_gemm_per_tap needs found")
+    if w.dim() != 3 or w.shape[1] != table.shape[1]:
+        raise ValueError(f"w must be (K, Cin, Cout) with Cin {table.shape[1]}, got "
+                         f"{tuple(w.shape)}")
+    _check_weights(table, idx, w, table.shape[1])
+    if not on_cuda(_named(table=table, idx=idx, found=found, w=w)):
+        return gather_gemm_per_tap_reference(table, idx, found, w)
+    fn = load("gather_gemm_per_tap", _ARGTYPES["gather_gemm_per_tap"])
+    (v, cin), (n, k), cout = table.shape, idx.shape, w.shape[2]
+    out = torch.empty((n, cout), dtype=torch.float32, device=table.device)
+    _launch("gather_gemm_per_tap", fn, table, table.data_ptr(), idx.data_ptr(),
+            found.data_ptr(), w.data_ptr(), out.data_ptr(), v, n, k, cin, cout,
+            DTYPE_CODES[table.dtype])
+    gather_gemm_per_tap.launches += 1
+    return out
+
+
+gather_gemm_per_tap.launches = 0
+
+
+def lane_gather_gemm(table_t, idx, w_flat, found=None):
+    """out[n] = concat_k(table_t[:, idx[n, k]]) @ w_flat in f32, the table
+    stored transposed (C, V); with ``found``, unfound taps contribute zero.
+    CUDA tensors run kernel G3; CPU tensors the plain version."""
+    _check_table("table_t", table_t, idx, found, cin_axis=0)
+    if w_flat.dim() != 2:
+        raise ValueError(f"w_flat must be (K*C, Cout), got {tuple(w_flat.shape)}")
+    _check_weights(table_t, idx, w_flat, table_t.shape[0])
+    if not on_cuda(_named(table_t=table_t, idx=idx, found=found, w_flat=w_flat)):
+        return lane_gather_gemm_reference(table_t, idx, w_flat, found)
+    fn = load("lane_gather_gemm", _ARGTYPES["lane_gather_gemm"])
+    (c, v), (n, k), cout = table_t.shape, idx.shape, w_flat.shape[1]
+    out = torch.empty((n, cout), dtype=torch.float32, device=table_t.device)
+    _launch("lane_gather_gemm", fn, table_t, table_t.data_ptr(), idx.data_ptr(),
+            None if found is None else found.data_ptr(), w_flat.data_ptr(), out.data_ptr(),
+            v, n, k, c, cout, DTYPE_CODES[table_t.dtype])
+    lane_gather_gemm.launches += 1
+    return out
+
+
+lane_gather_gemm.launches = 0
+
+
+def lane_gather(table_t, idx, tile: int):
+    """out[i, c, q] = table_t[c, idx_flat[i * tile*K + q]] as (N // tile, C,
+    tile*K) f32; rows past the last whole tile are not covered. CUDA tensors
+    run kernel G4; CPU tensors the plain version."""
+    _check_table("table_t", table_t, idx, None, cin_axis=0)
+    if tile <= 0:
+        raise ValueError(f"tile must be positive, got {tile}")
+    if not on_cuda(_named(table_t=table_t, idx=idx)):
+        return lane_gather_reference(table_t, idx, tile)
+    fn = load("lane_gather", _ARGTYPES["lane_gather"])
+    (c, v), (n, k) = table_t.shape, idx.shape
+    out = torch.empty((n // tile, c, tile * k), dtype=torch.float32, device=table_t.device)
+    _launch("lane_gather", fn, table_t, table_t.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            v, c, n // tile, tile * k, DTYPE_CODES[table_t.dtype])
+    lane_gather.launches += 1
+    return out
+
+
+lane_gather.launches = 0

@@ -14,6 +14,10 @@ False. The conv's forward is kernel A1 (``ops/gather_gemm.py``). With a
 transpose rulebook the conv is a ``torch.autograd.Function`` whose backward
 runs kernel A1 once more for dX (over the transpose rulebook, against
 ``W^T`` per tap) and kernel A2 for dW: gathers and GEMMs only, no scatter.
+
+``dense_mask_from_keys``, ``keys_from_dense_mask`` and ``rows_from_dense`` take
+a sparse tensor to a dense occupancy grid and back for the backbone's dense
+tail; all three accept leading batch axes.
 """
 from __future__ import annotations
 
@@ -223,6 +227,45 @@ def to_dense(features, keys, grid: GridSpec):
                         device=features.device)
     dense[target] = features
     return dense[:grid.num_cells].reshape(grid.nz, grid.ny, grid.nx, c)
+
+
+def dense_mask_from_keys(keys, grid: GridSpec):
+    """(..., V) sorted keys -> (..., nz, ny, nx) bool occupancy grid."""
+    lead = keys.shape[:-1]
+    valid = keys != INVALID_KEY
+    target = torch.where(valid, keys.long(), grid.num_cells)  # last cell: drop slot
+    mask = torch.zeros(lead + (grid.num_cells + 1,), dtype=torch.bool, device=keys.device)
+    mask.scatter_(-1, target, valid)
+    return mask[..., :grid.num_cells].reshape(lead + (grid.nz, grid.ny, grid.nx))
+
+
+def keys_from_dense_mask(mask_flat, cap: int):
+    """(..., num_cells) bool occupancy -> ((..., cap) sorted int32 keys with
+    INVALID_KEY padding, (..., cap) bool valid).
+
+    Rank compaction: the exclusive cumsum of the mask is each occupied cell's
+    output slot, ascending in cell order, so the result is sorted without a
+    sort, the capacity is fixed and nothing synchronises with the host.
+    Occupancy beyond ``cap`` drops the highest keys (the tail the capped
+    rulebook drops)."""
+    lead, cells = mask_flat.shape[:-1], mask_flat.shape[-1]
+    m = mask_flat.long()
+    rank = torch.cumsum(m, -1) - m  # exclusive prefix count
+    target = torch.where(mask_flat & (rank < cap), rank, cap)  # slot ``cap``: drop slot
+    keys = torch.full(lead + (cap + 1,), INVALID_KEY, dtype=torch.int32, device=mask_flat.device)
+    keys.scatter_(-1, target, torch.arange(cells, dtype=torch.int32,
+                                           device=mask_flat.device).expand(lead + (cells,)))
+    keys = keys[..., :cap].contiguous()
+    return keys, keys != INVALID_KEY
+
+
+def rows_from_dense(dense_flat, keys):
+    """Gather (..., V, C) sparse rows out of a (..., num_cells, C) dense grid;
+    padding rows (INVALID_KEY) come back zero."""
+    valid = keys != INVALID_KEY
+    safe = torch.where(valid, keys.long(), 0)
+    rows = torch.gather(dense_flat, -2, safe[..., None].expand(safe.shape + dense_flat.shape[-1:]))
+    return rows * valid[..., None].to(rows.dtype)
 
 
 class _SparseConv(torch.autograd.Function):

@@ -1,6 +1,6 @@
-"""Tests of the port that need a CUDA card (marker ``cuda``): kernels A1 and
-A2 have no CPU or interpret mode. They skip without a card. This file imports no JAX, so
-it also runs where JAX is not installed:
+"""Tests of the port that need a CUDA card (marker ``cuda``): kernels A1, A2
+and G1-G4 have no CPU or interpret mode. They skip without a card. This file
+imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda
 """
@@ -8,15 +8,18 @@ import numpy as np
 import pytest
 import torch
 
+from cpd_tpu_torch.models import backbone3d
+from cpd_tpu_torch.ops import gather_probes as gp
 from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch.ops.gather_gemm import (gather_gemm, gather_gemm_dw,
                                            gather_gemm_dw_reference, gather_gemm_reference)
+from cpd_tpu_torch.utils.weights import seeded_state_dict
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: kernels A1 and A2 have no CPU or interpret mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU or interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -150,3 +153,160 @@ def test_sparse_conv_backward_on_card_matches_cpu(cuda, kind):
     for got, want in zip(grads[1], grads[0]):
         assert float(want.abs().max()) > 1e-3
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _probe_operands(cuda, n, k, cin, cout, seed, v=600, density=0.4):
+    """f32 operands with junk idx under every unfound tap and a few found
+    taps pointing outside the table (which the kernels must drop)."""
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(size=(v, cin)).astype(np.float32)).to(cuda)
+    found = torch.from_numpy(rng.random((n, k)) < density).to(cuda)
+    idx = rng.integers(0, v, (n, k)).astype(np.int32)
+    idx[rng.random((n, k)) < 0.02] = v + 7
+    idx[rng.random((n, k)) < 0.02] = -3
+    idx = torch.where(found, torch.from_numpy(idx).to(cuda), 10**8).to(torch.int32)
+    w = torch.from_numpy((rng.normal(size=(k * cin, cout)) * 0.1).astype(np.float32)).to(cuda)
+    return table, idx, found, w
+
+
+def _close_to_plain(out, ref, rel):
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    scale = float(ref.abs().max())
+    assert scale > 1e-3
+    assert float((out - ref).abs().max()) <= rel * scale
+
+
+PROBE_SHAPES = [(1000, 27, 5, 16), (777, 27, 32, 64), (300, 3, 128, 128), (65, 27, 16, 200),
+                (2049, 27, 64, 32), (513, 27, 48, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,cin,cout", PROBE_SHAPES)
+def test_gather_gemm_flat_kernel_matches_plain(cuda, n, k, cin, cout):
+    """Kernel G1 against its plain version on ragged sizes, K = 3, 5-channel
+    rows (no 16-byte loads), junk idx under unfound taps, idx outside the
+    table: f32 to 1e-4 of the output's scale; f32 rounded to bf16 in the
+    kernel and bf16 operands to 1e-4 too (the plain version rounds the same
+    operands and both sum in f32); with and without ``found``; a second
+    launch gives the same bits."""
+    table, idx, found, w = _probe_operands(cuda, n, k, cin, cout, n)
+    launches = gp.gather_gemm_flat.launches
+    out = gp.gather_gemm_flat(table, idx, found, w)
+    _close_to_plain(out, gp.gather_gemm_flat_reference(table, idx, found, w), 1e-4)
+    assert torch.equal(out, gp.gather_gemm_flat(table, idx, found, w))
+    out = gp.gather_gemm_flat(table, idx, found, w, round_bf16=True)
+    _close_to_plain(out, gp.gather_gemm_flat_reference(table, idx, found, w, True), 1e-4)
+    tb, wb = table.bfloat16(), w.bfloat16()
+    out = gp.gather_gemm_flat(tb, idx, found, wb)
+    _close_to_plain(out, gp.gather_gemm_flat_reference(tb, idx, found, wb), 1e-4)
+    inside = idx.clamp(0, table.shape[0] - 1)  # without found every idx is read
+    out = gp.gather_gemm_flat(table, inside, None, w)
+    _close_to_plain(out, gp.gather_gemm_flat_reference(table, inside, None, w), 1e-4)
+    torch.cuda.synchronize()
+    assert gp.gather_gemm_flat.launches == launches + 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,cin,cout", PROBE_SHAPES)
+def test_gather_gemm_per_tap_kernel_matches_plain(cuda, n, k, cin, cout):
+    """Kernel G2 (rows compacted per tap) against its plain version, f32 and
+    bf16 operands, 1e-4 of the output's scale; the same bits twice."""
+    table, idx, found, w = _probe_operands(cuda, n, k, cin, cout, n + 1)
+    w = w.reshape(k, cin, cout)
+    launches = gp.gather_gemm_per_tap.launches
+    out = gp.gather_gemm_per_tap(table, idx, found, w)
+    _close_to_plain(out, gp.gather_gemm_per_tap_reference(table, idx, found, w), 1e-4)
+    assert torch.equal(out, gp.gather_gemm_per_tap(table, idx, found, w))
+    tb, wb = table.bfloat16(), w.bfloat16()
+    out = gp.gather_gemm_per_tap(tb, idx, found, wb)
+    _close_to_plain(out, gp.gather_gemm_per_tap_reference(tb, idx, found, wb), 1e-4)
+    torch.cuda.synchronize()
+    assert gp.gather_gemm_per_tap.launches == launches + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,cin,cout", PROBE_SHAPES)
+def test_lane_gather_gemm_kernel_matches_plain(cuda, n, k, cin, cout):
+    """Kernel G3 on the transposed table against its plain version and
+    against kernel G1 on the row-major table, with and without ``found``."""
+    table, idx, found, w = _probe_operands(cuda, n, k, cin, cout, n + 2)
+    table_t = table.T.contiguous()
+    launches = gp.lane_gather_gemm.launches
+    out = gp.lane_gather_gemm(table_t, idx, w, found)
+    _close_to_plain(out, gp.lane_gather_gemm_reference(table_t, idx, w, found), 1e-4)
+    _close_to_plain(out, gp.gather_gemm_flat(table, idx, found, w), 1e-4)
+    assert torch.equal(out, gp.lane_gather_gemm(table_t, idx, w, found))
+    inside = idx.clamp(0, table.shape[0] - 1)
+    out = gp.lane_gather_gemm(table_t.bfloat16(), inside, w.bfloat16())
+    _close_to_plain(out, gp.lane_gather_gemm_reference(table_t.bfloat16(), inside, w.bfloat16()),
+                    1e-4)
+    torch.cuda.synchronize()
+    assert gp.lane_gather_gemm.launches == launches + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,c,tile", [(1000, 27, 5, 256), (777, 27, 64, 64), (300, 3, 128, 7)])
+def test_lane_gather_kernel_equals_plain(cuda, n, k, c, tile):
+    """Kernel G4 equals its plain version and ``index_select`` bit for bit;
+    rows past the last whole tile are not covered; an idx outside the table
+    gives zeros."""
+    table, idx, _, _ = _probe_operands(cuda, n, k, c, 1, n + 3)
+    table_t = table.T.contiguous()
+    inside = idx.clamp(0, table.shape[0] - 1)
+    launches = gp.lane_gather.launches
+    out = gp.lane_gather(table_t, inside, tile)
+    tiles = n // tile
+    assert out.shape == (tiles, c, tile * k)
+    assert torch.equal(out, gp.lane_gather_reference(table_t, inside, tile))
+    lib = torch.index_select(table_t, 1, inside.reshape(-1)[:tiles * tile * k])
+    assert torch.equal(out, lib.reshape(c, tiles, tile * k).permute(1, 0, 2))
+    assert torch.equal(gp.lane_gather(table_t, idx, tile),
+                       gp.lane_gather_reference(table_t, idx, tile))
+    out = gp.lane_gather(table_t.bfloat16(), inside, tile)
+    assert torch.equal(out, gp.lane_gather_reference(table_t.bfloat16(), inside, tile))
+    torch.cuda.synchronize()
+    assert gp.lane_gather.launches == launches + 3
+
+
+@pytest.mark.cuda
+def test_probe_kernels_reject_non_contiguous(cuda):
+    table, idx, found, w = _probe_operands(cuda, 64, 3, 8, 16, 0)
+    with pytest.raises(ValueError):
+        gp.gather_gemm_flat(table, idx, found, w.T.contiguous().T)
+    with pytest.raises(ValueError):
+        gp.lane_gather(table.T, idx, 8)  # (C, V) view of a (V, C) table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_dense_tail_on_card_matches_sparse(cuda, dtype):
+    """The backbone with the dense tail (cuDNN conv3d on stage 4 and conv_out,
+    TF32 off) against the sparse tail (kernel A1) on the card, same weights,
+    below the caps: equal key sets; features within 1e-4 of scale at f32 and
+    3% at bf16; the BEV map equals the height-compressed sparse output."""
+    from cpd_tpu_torch.models.bev import height_compression
+    rng = np.random.default_rng(5)
+    grid = sparse.GridSpec(48, 40, 26)
+    keys = np.full((2, 1500), sparse.INVALID_KEY, np.int32)
+    for b in range(2):
+        keys[b, :1300] = np.sort(rng.choice(grid.num_cells, 1300, replace=False))
+    feats = rng.normal(size=(2, 1500, 5)).astype(np.float32)
+    feats[keys == sparse.INVALID_KEY] = 0.0
+    outs = {}
+    for dense in (False, True):
+        model = backbone3d.VoxelResBackBone8x(grid, 5, (8, 16, 32, 64), (1400, 1400, 1400, 1400),
+                                              compute_dtype=dtype, dense_tail=dense)
+        model.load_state_dict(seeded_state_dict(model, 1))
+        model = model.eval().to(cuda)
+        with torch.no_grad():
+            outs[dense] = model(torch.from_numpy(feats).to(cuda), torch.from_numpy(keys).to(cuda))
+    tol = 1e-4 if dtype is None else 0.03
+    for name in ("x_conv3", "x_conv4", "encoded"):
+        (fs, ks, _), (fd, kd, _) = outs[False][name], outs[True][name]
+        assert torch.equal(ks, kd), name
+        scale = float(fs.float().abs().max())
+        assert scale > 1e-2
+        assert float((fs.float() - fd.float()).abs().max()) <= tol * scale, name
+    bev_s = height_compression(*outs[False]["encoded"]).float()
+    bev_d = outs[True]["encoded_bev"].float()
+    assert float((bev_s - bev_d).abs().max()) <= tol * float(bev_s.abs().max())

@@ -52,16 +52,20 @@ def _random_boxes(rng, n, spread=6.0):
 
 
 def test_port_imports_no_jax():
-    """Every cpd_tpu_torch module imports without jax, flax or yaml."""
+    """Every cpd_tpu_torch module and chip_smoke import without jax, flax,
+    yaml or anything of cpd_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cpd_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(cpd_tpu_torch.__path__, 'cpd_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = [m for m in ('jax', 'flax', 'yaml') if m in sys.modules]\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'yaml', 'cpd_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 23, names\n"
-        "assert {'cpd_tpu_torch.utils.loss', 'cpd_tpu_torch.parallel.trainer'} <= set(names)\n"
+        "assert len(names) >= 27, names\n"
+        "assert {'cpd_tpu_torch.utils.loss', 'cpd_tpu_torch.parallel.trainer',\n"
+        "        'cpd_tpu_torch.ops.cuda_build', 'cpd_tpu_torch.ops.gather_probes',\n"
+        "        'cpd_tpu_torch.probes.gather'} <= set(names)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
