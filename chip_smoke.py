@@ -16,19 +16,25 @@ raising on failure:
 
 1. card: needs CUDA; prints the card's name and power limit;
 2. build: compiles every kernel source under cpd_tpu_torch/csrc/ (A1, A2,
-   G1-G4) with nvcc for sm_90a, one process each, side by side;
+   G1-G4) with nvcc for sm_90a, one process each, side by side, and prints
+   what ptxas reports per kernel (registers a thread, spills) and the dynamic
+   shared memory a block of A1 and A2 asks for at the widest layer;
 3. kernel A1 against its plain PyTorch version on the (table, idx, found, W)
    of each of the 21 launches of one sparse-tail forward, recorded at the
    wrapper: f32 within atol/rtol 1e-4 (TF32 off), bf16 (the main path's
-   dtype) within rtol 1e-2 + 1e-2 of the layer's output scale; median kernel
-   and plain times per layer shape;
+   dtype) within rtol 1e-2 + 1e-2 of the layer's output scale; a second
+   launch gives the same bits; median kernel and plain times per layer shape
+   (device times: a spin kernel ahead of each reading keeps the host's
+   enqueue out of it), the found-tap TFLOP/s achieved, and the host time one
+   wrapper call takes;
 4. the probe kernels G1-G4 against their plain versions (f32 operands within
    1e-4 of the output's scale, bf16 operands within rtol 1e-2 + 1e-2 of it
    against the plain version's f32 result, G4 bit-equal, a second launch
    bit-equal) on (a) each probe's own operands (G1 at P1, P2, P4 and P5, G2
    at P3, G3 at P6, G4 at P7) and (b) the real operands of the 9 layer
    shapes recorded in 3, with times run in turns against A1 and the plain
-   version on the same operands; then the probes' entry point
+   version on the same operands, and A1 against G2 (the fastest probe)
+   summed over a forward's 21 convs; then the probes' entry point
    (``probes.gather.run_probe`` for P1-P7) with the launch counts read
    around it;
 5. predict, sparse tail: cap-occupancy audit, A1 launch count (21 per
@@ -92,6 +98,7 @@ from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch.ops.voxelizer import voxelize_batch
 from cpd_tpu_torch.parallel import init_state, make_train_step
 from cpd_tpu_torch.probes import gather as probes
+from cpd_tpu_torch.utils.device import place
 from cpd_tpu_torch.utils.synthetic import (make_lidar_frame, make_tiny_train_batch,
                                            make_train_batch)
 from cpd_tpu_torch.utils.weights import seeded_state_dict
@@ -126,6 +133,7 @@ PROBE_TILE = 256  # rows per tile of G4's output layout on the layer shapes
 TRAIN_A1_FORWARD, TRAIN_A1_DX, TRAIN_A2 = 35, 33, 35
 TRAIN_BATCH = 2
 HBM_BYTES_PER_S = 3.35e12
+SPIN_CYCLES = 600_000  # about 0.3 ms of torch.cuda._sleep ahead of a timed call
 # peak rate for the operands' type: bf16 on the tensor cores; f32 products
 # keep their precision only outside them
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -142,24 +150,42 @@ def card_line() -> str:
 def seeded_model(cfg, seed, device):
     model = VoxelRCNN(**cfg)
     model.load_state_dict(seeded_state_dict(model, seed), strict=True)
-    return model.eval().to(device)
+    return place(model.eval(), device)
 
 
 def paired_median_ms(*fns, reps=5):
     """Median single-call device times (CUDA events) of two or more versions,
-    run in turns (a b c, c b a, ...) after a warm-up of each."""
+    run in turns (a b c, c b a, ...) after a warm-up of each. A spin kernel
+    of about 0.3 ms is queued ahead of each reading, so that the host has
+    enqueued the call before the card reaches it: a kernel of 0.05 ms is
+    timed, not the wrapper's Python around it (``wrapper_host_us`` times
+    that)."""
     for fn in fns:
         fn()
     times = [[] for _ in fns]
     for r in range(reps):
         for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
             start.record()
             fns[i]()
             end.record()
             end.synchronize()
             times[i].append(start.elapsed_time(end))
     return tuple(statistics.median(t) for t in times)
+
+
+def wrapper_host_us(fn, calls=200):
+    """Host microseconds one call of a kernel wrapper takes to return (checks,
+    allocation, the launch itself), over ``calls`` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def launch_bound(tensors, out_bytes, ops, dtype):
@@ -231,13 +257,18 @@ def check_kernel(label, calls, kernel, plain, out_dtype):
         print(f"{label} {name}: B={b} N={n} K={k} C={table.shape[-1]}->{other.shape[-1]} "
               f"found={found.float().mean().item():.3f} f32 max err {err32.max().item():.3e}, "
               f"bf16 max err {err.max().item():.3e} (output scale {scale:.3e})")
+    name, table, idx, found, other = calls[0]
+    host_us = wrapper_host_us(lambda: kernel(table, idx, found, other, out_dtype))
+    print(f"{label}: the wrapper takes {host_us:.1f} us of host time a call (at {name}, 200 "
+          f"calls back to back)")
     for e in shapes.values():
         print(f"{label} shape {e['layer']} x{e['count']}: B={e['batch']} N={e['rows']} "
               f"K={e['taps']} C={e['cin']}->{e['cout']}: kernel {e['ms']:.4f} ms, plain "
               f"{e['plain_ms']:.4f} ms (medians of 5, run in turns, bf16), bound "
               f"{e['bound_ms'] / e['count']:.5f} ms a launch by {'/'.join(e['bound_by'])} "
               f"({e['nbytes'] / e['count'] / 1e6:.2f} MB, "
-              f"{e['ops'] / e['count'] / 1e9:.3f} GFLOP on found taps)")
+              f"{e['ops'] / e['count'] / 1e9:.3f} GFLOP on found taps: "
+              f"{e['ops'] / e['count'] / e['ms'] / 1e9:.2f} TFLOP/s achieved on them)")
     return max_err, list(shapes.values())
 
 
@@ -269,6 +300,30 @@ def a2_kernel(table, idx, found, g_out, out_dtype):
 
 def a2_plain(table, idx, found, g_out, out_dtype):
     return a1.gather_gemm_dw_reference(table, idx, found, g_out)
+
+
+def kernel_resource_lines():
+    """What ptxas reports for the kernels of every source (registers a
+    thread, spilled bytes, static shared memory) and, for A1 and A2, whose
+    shared memory is dynamic, the bytes a block asks for at the widest
+    layer's launch."""
+    for name in cuda_build.SOURCES:
+        rows = cuda_build.kernel_resources(name)
+        if not rows:  # the library was built by an earlier process and reused
+            print(f"{name}: reused an earlier build, no ptxas report")
+            continue
+        print(f"{name}: {len(rows)} kernels, {min(r[1] for r in rows)} to "
+              f"{max(r[1] for r in rows)} registers a thread, "
+              f"{sum(r[2] for r in rows)} bytes spilled, "
+              f"{max(r[3] for r in rows)} bytes of static shared memory at most")
+    for code, what in ((1, "bf16"), (0, "f32")):
+        tm = a1.a1_tile_rows(1, 24000, 27, 128, 128, 4 - 2 * code)
+        plan = a1.a2_plan(48000, 27, 128, 128)
+        print(f"shared memory a block at 27 x 128 -> 128, {what}: A1 "
+              f"{a1.kernel_smem_bytes('gather_gemm', 27, 128, 128, code, tm)} bytes at {tm} rows "
+              f"a tile (24000 rows), A2 "
+              f"{a1.kernel_smem_bytes('gather_gemm_dw', 128, 128, *plan, code)} bytes at "
+              f"(chunk rows, taps) = {plan} (48000 rows)")
 
 
 def cap_audit(model, batch):
@@ -808,6 +863,17 @@ def probes_on_layer_shapes(convs, uses):
             lambda: torch.index_select(t_t, 1, flat), (t_t, i), 0.0, True))
     if len(seen) != 9:
         raise AssertionError(f"{len(seen)} layer shapes among the recorded convs, want 9")
+    # kernel A1 against G2, the fastest probe, timed in the same turns
+    counts = {}
+    for _, table, idx, _, w in convs:
+        key = (idx.shape[1], idx.shape[2], table.shape[-1], w.shape[-1])
+        counts[key] = counts.get(key, 0) + 1
+    g2 = uses["gather_gemm_per_tap"][-9:]
+    sums = [sum(u[k] * n for u, n in zip(g2, counts.values())) for k in ("a1_ms", "ms")]
+    behind = [u["at"] for u in g2 if u["a1_ms"] > u["ms"]]
+    print(f"A1 against G2 over the {sum(counts.values())} convs of a forward (f32 output, batch "
+          f"1): A1 {sums[0]:.4f} ms, G2 {sums[1]:.4f} ms; A1 slower than G2 at: "
+          f"{behind or 'no shape'}")
 
 
 def probe_phase(dev, convs):
@@ -955,6 +1021,7 @@ def main():
     secs = cuda_build.build(verbose=True)
     print(f"kernel build: {secs:.1f} s compiling {len(cuda_build.SOURCES)} sources (one nvcc "
           f"process each, side by side)", flush=True)
+    kernel_resource_lines()
 
     dev = torch.device("cuda")
     src = "cpd_tpu_torch/csrc/gather_gemm.cu"

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,12 +26,15 @@ _PKG = Path(__file__).resolve().parents[1]
 KERNELS = ("gather_gemm", "gather_gemm_dw", "gather_gemm_flat", "gather_gemm_per_tap",
            "lane_gather_gemm", "lane_gather")
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in KERNELS}
+# headers that the sources include (part of every library's key)
+HEADERS = (_PKG / "csrc" / "gather_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 # dtype codes of the C entry points
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _libs = {}
+build_log = {}  # per source, what nvcc printed in this process's build
 
 
 def _nvcc() -> str:
@@ -45,15 +49,20 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """The built library's path, keyed by a hash of the source and flags."""
+    """The built library's path, keyed by a hash of the source, the headers
+    and the flags."""
     digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in HEADERS:
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"libcpd_{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build(verbose: bool = False) -> float:
     """Compile every kernel library whose build does not exist yet, one nvcc
     process per source, all started together. Returns the seconds spent
-    compiling (0.0 when every build was reused)."""
+    compiling (0.0 when every build was reused). With ``verbose`` ptxas
+    reports every kernel's resources (``-Xptxas -v``) into ``build_log``,
+    which ``kernel_resources`` reads."""
     todo = [name for name in SOURCES if not library_path(name).exists()]
     if not todo:
         return 0.0
@@ -73,24 +82,36 @@ def build(verbose: bool = False) -> float:
             if proc.returncode != 0:
                 failures.append(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{err}")
                 continue
-            if verbose:
-                print(err, end="")
+            build_log[name] = err
             os.replace(tmp_out, library_path(name))  # atomic: never a partial library
         if failures:
             raise RuntimeError("\n".join(failures))
     return time.perf_counter() - t0
 
 
-def load(name: str, argtypes):
-    """The C entry point ``cpd_<name>`` with ``argtypes`` set, building every
-    missing library first."""
-    if name not in _libs:
+def kernel_resources(name: str):
+    """[(mangled kernel name, registers a thread, bytes spilled, static
+    shared memory bytes)] of source ``name``, from the ptxas report of a
+    ``build(verbose=True)`` made by this process."""
+    pattern = re.compile(
+        r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes spill stores"
+        r"[^\n]*\nptxas info\s*: Used (\d+) registers(?:[^\n]*?, (\d+) bytes smem)?")
+    return [(m[1], int(m[3]), int(m[2]), int(m[4] or 0))
+            for m in pattern.finditer(build_log.get(name, ""))]
+
+
+def load(name: str, argtypes, symbol: str | None = None):
+    """The C entry point ``symbol`` (default ``cpd_<name>``) of kernel
+    library ``name`` with ``argtypes`` set, building every missing library
+    first."""
+    symbol = symbol or f"cpd_{name}"
+    if symbol not in _libs:
         build()
-        fn = getattr(ctypes.CDLL(str(library_path(name))), f"cpd_{name}")
+        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = fn
-    return _libs[name]
+        _libs[symbol] = fn
+    return _libs[symbol]
 
 
 def on_cuda(named_tensors) -> bool:

@@ -7,9 +7,9 @@ step is forward + loss (``VoxelRCNN.loss_step``), backward, the non-finite
 guard, clip and update. Data-parallel training over several cards (gradient
 all-reduce, synchronised batch norm) is not ported.
 
-``init_state`` takes a ``device`` and uses the CUDA card unless the caller
-asks for another; with no card and no such request it raises. The step runs
-where the state's model lives.
+``init_state`` places the model with ``utils.device.place``: on the CUDA
+card unless the caller asks for another device; with no card and no such
+request it raises. The step runs where the state's model lives.
 """
 from __future__ import annotations
 
@@ -20,14 +20,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, or the CUDA card; raises where there is neither."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card found: pass device='cpu' to train on the CPU")
-    return torch.device("cuda")
+from ..utils.device import place, resolve_device  # noqa: F401 (resolve_device re-exported)
 
 
 def _cosine_interpolate(start: float, end: float, pct: float) -> float:
@@ -173,7 +166,7 @@ class TrainState:
 def init_state(model: nn.Module, opt_cfg: Dict, total_steps: int, device=None) -> TrainState:
     """Move ``model`` to the device, put it in training mode and build its
     optimizer."""
-    model = model.to(resolve_device(device)).train()
+    model = place(model, device).train()
     return TrainState(0, model, build_optimizer(model.parameters(), opt_cfg, total_steps))
 
 

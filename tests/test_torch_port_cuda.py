@@ -11,6 +11,7 @@ import torch
 from cpd_tpu_torch.models import backbone3d
 from cpd_tpu_torch.ops import gather_probes as gp
 from cpd_tpu_torch.ops import sparse
+from cpd_tpu_torch.ops import gather_gemm as gg
 from cpd_tpu_torch.ops.gather_gemm import (gather_gemm, gather_gemm_dw,
                                            gather_gemm_dw_reference, gather_gemm_reference)
 from cpd_tpu_torch.utils.weights import seeded_state_dict
@@ -153,6 +154,131 @@ def test_sparse_conv_backward_on_card_matches_cpu(cuda, kind):
     for got, want in zip(grads[1], grads[0]):
         assert float(want.abs().max()) > 1e-3
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _rulebook(rng, b, n, k, v, case):
+    """(idx, found, plain idx, plain found) on the CPU for one trap: the
+    kernels get junk under unfound taps and found taps outside the table; the
+    plain versions get the same rulebook with those taps unfound."""
+    found = rng.random((b, n, k)) < 0.3
+    idx = rng.integers(0, v, (b, n, k))
+    if case == "empty_tile":      # no found tap in the first 300 rows
+        found[:, :300] = False
+    elif case == "all_found":
+        found[:] = True
+    elif case == "same_row":      # every hit reads one of three table rows
+        idx = rng.integers(0, 3, (b, n, k))
+    elif case == "outside":       # found taps pointing outside the table: dropped
+        idx[rng.random((b, n, k)) < 0.1] = v + 5
+        idx[rng.random((b, n, k)) < 0.1] = -1
+    inside = (idx >= 0) & (idx < v)
+    junk = np.where(found, idx, 10**8).astype(np.int32)
+    return (torch.from_numpy(junk), torch.from_numpy(found),
+            torch.from_numpy(np.where(found & inside, idx, 0).astype(np.int32)),
+            torch.from_numpy(found & inside))
+
+
+# b, n, k, cin, cout: ragged rows, K = 3, 5-channel rows, wide -> narrow (the
+# dX of a strided conv), more channels than one tile or staged depth holds
+TRAP_SHAPES = [(2, 1000, 27, 5, 16), (1, 1237, 27, 16, 16), (2, 777, 27, 64, 32),
+               (2, 531, 27, 128, 64), (1, 300, 3, 128, 128), (2, 333, 27, 16, 32),
+               (1, 600, 27, 32, 32), (1, 450, 27, 64, 128), (1, 90, 27, 130, 70),
+               (1, 129, 40, 24, 136)]
+TRAP_CASES = ["plain", "empty_tile", "all_found", "same_row", "outside"]
+
+
+def _close(out, ref, rel, what):
+    assert out.shape == ref.shape, what
+    scale = max(float(ref.abs().max()), 1e-3)
+    err = float((out.float() - ref).abs().max())
+    assert err <= rel * scale, f"{what}: max err {err} at scale {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAP_CASES)
+@pytest.mark.parametrize("b,n,k,cin,cout", TRAP_SHAPES)
+def test_gather_gemm_kernel_traps(cuda, b, n, k, cin, cout, case):
+    """Kernel A1 on every trap of its inputs, f32 and bf16 operands, f32 and
+    bf16 outputs, at every tile size: f32 within 1e-4 of the output's scale;
+    bf16 operands with the f32 output within 1e-4 too (the same rounded
+    operands, f32 sums), with the bf16 output within 1e-2 (its rounding); a
+    second launch gives the same bits."""
+    rng = np.random.default_rng(n + k + cin)
+    v = 400
+    idx, found, p_idx, p_found = (t.to(cuda) for t in _rulebook(rng, b, n, k, v, case))
+    table = torch.from_numpy(rng.normal(size=(b, v, cin)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.normal(size=(k * cin, cout)) * 0.1).astype(np.float32)).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        t, ww = table.to(dtype), w.to(dtype)
+        ref = gather_gemm_reference(t, p_idx, p_found, ww)
+        for tile_rows in (None, 64, 128, 256):
+            if tile_rows and gg.a1_smem_bytes(tile_rows, k, cin, cout,
+                                              t.element_size()) > gg.MAX_SMEM:
+                continue
+            what = f"{case} {dtype} tile {tile_rows}"
+            out = gather_gemm(t, idx, found, ww, tile_rows=tile_rows)
+            _close(out, ref, 1e-4, what)
+            assert torch.equal(out, gather_gemm(t, idx, found, ww, tile_rows=tile_rows)), what
+            out16 = gather_gemm(t, idx, found, ww, out_dtype=torch.bfloat16, tile_rows=tile_rows)
+            assert out16.dtype == torch.bfloat16
+            assert torch.equal(out16, out.bfloat16()), what  # the same sums, rounded once
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAP_CASES)
+@pytest.mark.parametrize("b,n,k,cin,cout", TRAP_SHAPES)
+def test_gather_gemm_dw_kernel_traps(cuda, b, n, k, cin, cout, case):
+    """Kernel A2 on the same traps, f32 and bf16 operands, with its own plan
+    and with forced ones (one tap a block over long chunks, all taps over
+    short ones): 1e-4 of the output's scale, the same bits twice."""
+    rng = np.random.default_rng(n + k + cout)
+    v = 400
+    idx, found, p_idx, p_found = (t.to(cuda) for t in _rulebook(rng, b, n, k, v, case))
+    table = torch.from_numpy(rng.normal(size=(b, v, cin)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(b, n, cout)).astype(np.float32)).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        t, gd = table.to(dtype), g.to(dtype)
+        ref = gather_gemm_dw_reference(t, p_idx, p_found, gd)
+        for plan in (None, (512, 1), (32, min(k, 32)), (160, 9)):
+            what = f"{case} {dtype} plan {plan}"
+            out = gather_gemm_dw(t, idx, found, gd, plan=plan)
+            assert out.dtype == torch.float32
+            _close(out, ref, 1e-4, what)
+            assert torch.equal(out, gather_gemm_dw(t, idx, found, gd, plan=plan)), what
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_kernels_ask_for_the_shared_memory_the_wrapper_counts(cuda):
+    """``a1_smem_bytes`` / ``a2_smem_bytes`` (which choose the tile and are
+    tested on the CPU) equal what the built kernels compute for a launch."""
+    for code, itemsize in ((0, 4), (1, 2)):
+        for k, cin, cout in [(27, 5, 16), (27, 16, 32), (27, 64, 64), (27, 128, 128),
+                             (3, 128, 128), (40, 24, 136)]:
+            for tm in (64, 128, 256):
+                assert (gg.kernel_smem_bytes("gather_gemm", k, cin, cout, code, tm)
+                        == gg.a1_smem_bytes(tm, k, cin, cout, itemsize))
+            for chunk_rows, taps in [(288, 27), (896, 9), (4096, 1)]:
+                assert (gg.kernel_smem_bytes("gather_gemm_dw", cin, cout, chunk_rows, taps, code)
+                        == gg.a2_smem_bytes(chunk_rows, taps, cin, cout, itemsize))
+
+
+@pytest.mark.cuda
+def test_a_refused_launch_raises(cuda):
+    """More shared memory than a block may have: the launch is refused and
+    the wrapper raises (it never falls back to the plain version)."""
+    table = torch.zeros(1, 8, 128, device=cuda)
+    idx = torch.zeros(1, 64, 27, dtype=torch.int32, device=cuda)
+    found = torch.ones(1, 64, 27, dtype=torch.bool, device=cuda)
+    w = torch.zeros(27 * 128, 128, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gather_gemm(table, idx, found, w, tile_rows=1024)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gather_gemm_dw(table, idx, found, torch.zeros(1, 64, 128, device=cuda), plan=(8192, 27))
+    torch.cuda.synchronize()
+    out = gather_gemm(table, idx, found, w)  # the card is still usable
+    assert float(out.abs().max()) == 0.0
 
 
 def _probe_operands(cuda, n, k, cin, cout, seed, v=600, density=0.4):
