@@ -17,8 +17,9 @@ raising on failure:
 1. card: needs CUDA; prints the card's name and power limit;
 2. build: compiles every kernel source under cpd_tpu_torch/csrc/ (A1, A2,
    G1-G4) with nvcc for sm_90a, one process each, side by side, and prints
-   what ptxas reports per kernel (registers a thread, spills) and the dynamic
-   shared memory a block of A1 and A2 asks for at the widest layer;
+   what ptxas reports per kernel (registers a thread, spills; for each of
+   G1's 24 instances apart) and the dynamic shared memory a block of A1, A2
+   and G1 asks for at the widest layer;
 3. kernel A1 against its plain PyTorch version on the (table, idx, found, W)
    of each of the 21 launches of one sparse-tail forward, recorded at the
    wrapper: f32 within atol/rtol 1e-4 (TF32 off), bf16 (the main path's
@@ -33,8 +34,9 @@ raising on failure:
    bit-equal) on (a) each probe's own operands (G1 at P1, P2, P4 and P5, G2
    at P3, G3 at P6, G4 at P7) and (b) the real operands of the 9 layer
    shapes recorded in 3, with times run in turns against A1 and the plain
-   version on the same operands, and A1 against G2 (the fastest probe)
-   summed over a forward's 21 convs; then the probes' entry point
+   version on the same operands, and A1 against G1 (the flat formulation)
+   and against G2 summed over a forward's 21 convs, with the shapes where
+   each is faster than A1; then the probes' entry point
    (``probes.gather.run_probe`` for P1-P7) with the launch counts read
    around it;
 5. predict, sparse tail: cap-occupancy audit, A1 launch count (21 per
@@ -63,7 +65,11 @@ raising on failure:
    of both branches moved, and a torch.profiler window of a step;
 10. a small training step on the CPU and on the card, same weights, proposals
     and sampling uniforms: at f32 the losses agree to 1e-3 and the gradients
-    to a cosine of 0.999; at bf16 (the main path's dtype) within a loose tier.
+    to a cosine of 0.999; at bf16 (the main path's dtype) within a loose tier;
+11. step determinism (a report, not a gate): one training step run twice in
+    one process from the same state, the first forward tensor and the first
+    gradient that differ between the two, and the ops that PyTorch flags as
+    not deterministic.
 
 The last two lines of stdout are the card line and a JSON object; the line
 before them is the kernels JSON. For each use of A1 and A2 it gives the
@@ -115,7 +121,7 @@ BENCH = dict(
     roi_per_image=130,
     dense_tail=False,
 )
-SMALL = dict(num_classes=3, point_cloud_range=(-8.0, -8.0, -2.0, 8.0, 8.0, 4.0),
+SMALL = dict(num_classes=3, mm=False, point_cloud_range=(-8.0, -8.0, -2.0, 8.0, 8.0, 4.0),
              voxel_size=(0.5, 0.5, 0.15), max_voxels=1024,
              backbone_caps=(512, 256, 128, 128), num_rois_test=16,
              rpn_nms={"NMS_THRESH": 0.8, "NMS_PRE_MAXSIZE": 256})
@@ -316,14 +322,20 @@ def kernel_resource_lines():
               f"{max(r[1] for r in rows)} registers a thread, "
               f"{sum(r[2] for r in rows)} bytes spilled, "
               f"{max(r[3] for r in rows)} bytes of static shared memory at most")
+    for kernel, regs, spilled, _ in cuda_build.kernel_resources("gather_gemm_flat"):
+        print(f"gather_gemm_flat instance {kernel}: {regs} registers a thread, {spilled} bytes "
+              f"spilled")
     for code, what in ((1, "bf16"), (0, "f32")):
         tm = a1.a1_tile_rows(1, 24000, 27, 128, 128, 4 - 2 * code)
         plan = a1.a2_plan(48000, 27, 128, 128)
+        tm_g1 = gp.g1_tile_rows(24000, 27, 128, 4 - 2 * code)
         print(f"shared memory a block at 27 x 128 -> 128, {what}: A1 "
               f"{a1.kernel_smem_bytes('gather_gemm', 27, 128, 128, code, tm)} bytes at {tm} rows "
               f"a tile (24000 rows), A2 "
               f"{a1.kernel_smem_bytes('gather_gemm_dw', 128, 128, *plan, code)} bytes at "
-              f"(chunk rows, taps) = {plan} (48000 rows)")
+              f"(chunk rows, taps) = {plan} (48000 rows), G1 "
+              f"{a1.kernel_smem_bytes('gather_gemm_flat', 27, 128, code, 0, tm_g1)} bytes at "
+              f"{tm_g1} rows a tile")
 
 
 def cap_audit(model, batch):
@@ -662,6 +674,82 @@ def training_phase(dev):
     ]
 
 
+def _tensors(x):
+    """Every tensor in a module's output (tensors, tuples, dicts, NamedTuples)."""
+    if isinstance(x, torch.Tensor):
+        return [x.detach().clone()]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def step_determinism(dev):
+    """One training step (loss_step and backward, the bench configuration,
+    batch 2, the labels placed once) run twice in one process from the same
+    weights, statistics and generator seed. Prints the first tensor that
+    differs between the two runs, in the order the forward made them (the
+    voxelizer's frames, then every module's output), then the first
+    parameter gradient that differs, and the ops that
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` flags in a
+    third run. Returns (first forward tensor, first gradient), None where the
+    runs agree bit for bit."""
+    import warnings
+    from cpd_tpu_torch.models import detector
+    model = VoxelRCNN(**dict(BENCH, mm=True))
+    model.load_state_dict(seeded_state_dict(model, 0), strict=True)
+    model = place(model, dev).train()
+    batch = to_device(make_train_batch(0, TRAIN_BATCH, N_POINTS), dev)
+    batch, _ = labels_on_proposals(model, batch, n_labelled=min(40, batch["gt_boxes"].shape[1]))
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    voxelize = detector.voxelize_batch
+
+    def one_step():
+        model.load_state_dict(start, strict=True)
+        model.zero_grad(set_to_none=True)
+        record = []
+
+        def recorded_voxelize(*args, **kwargs):
+            frame = voxelize(*args, **kwargs)
+            record.append(("voxelize_batch", _tensors(tuple(frame))))
+            return frame
+        hooks = [m.register_forward_hook(
+            lambda mod, inp, out, name=name: record.append((name, _tensors(out))))
+            for name, m in model.named_modules() if name]
+        detector.voxelize_batch = recorded_voxelize
+        try:
+            loss, _ = model.loss_step(batch, generator=torch.Generator(device=dev).manual_seed(0))
+            loss.backward()
+        finally:
+            detector.voxelize_batch = voxelize
+            for h in hooks:
+                h.remove()
+        torch.cuda.synchronize()
+        grads = [(n, p.grad.clone()) for n, p in model.named_parameters() if p.grad is not None]
+        return record, float(loss.detach()), grads
+
+    (rec_a, loss_a, grads_a), (rec_b, loss_b, grads_b) = one_step(), one_step()
+    first_fwd = next((f"{name}[{i}]" for (name, ta), (_, tb) in zip(rec_a, rec_b)
+                      for i, (x, y) in enumerate(zip(ta, tb)) if not torch.equal(x, y)), None)
+    first_grad = next((n for (n, x), (_, y) in zip(grads_a, grads_b) if not torch.equal(x, y)),
+                      None)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            one_step()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(" does not have a deterministic")[0]
+                      for w in caught if "deterministic" in str(w.message)})
+    print(f"step determinism (two loss_step + backward from the same state, {len(rec_a)} "
+          f"recorded forward outputs, {len(grads_a)} gradients): loss {loss_a!r} and {loss_b!r}; "
+          f"first forward tensor that differs: {first_fwd}; first gradient that differs: "
+          f"{first_grad}; ops flagged as not deterministic: {flagged or 'none'}", flush=True)
+    return first_fwd, first_grad
+
+
 def set_compute_dtype(model, dtype):
     """Every module of the model that computes in a ``compute_dtype`` (sparse
     convs, BEV and head convs, the RoI MLPs and towers) to ``dtype``."""
@@ -863,17 +951,19 @@ def probes_on_layer_shapes(convs, uses):
             lambda: torch.index_select(t_t, 1, flat), (t_t, i), 0.0, True))
     if len(seen) != 9:
         raise AssertionError(f"{len(seen)} layer shapes among the recorded convs, want 9")
-    # kernel A1 against G2, the fastest probe, timed in the same turns
+    # kernel A1 against G1 (the flat formulation) and G2, timed in the same turns
     counts = {}
     for _, table, idx, _, w in convs:
         key = (idx.shape[1], idx.shape[2], table.shape[-1], w.shape[-1])
         counts[key] = counts.get(key, 0) + 1
-    g2 = uses["gather_gemm_per_tap"][-9:]
-    sums = [sum(u[k] * n for u, n in zip(g2, counts.values())) for k in ("a1_ms", "ms")]
-    behind = [u["at"] for u in g2 if u["a1_ms"] > u["ms"]]
-    print(f"A1 against G2 over the {sum(counts.values())} convs of a forward (f32 output, batch "
-          f"1): A1 {sums[0]:.4f} ms, G2 {sums[1]:.4f} ms; A1 slower than G2 at: "
-          f"{behind or 'no shape'}")
+    for label, kernel in (("G1", "gather_gemm_flat"), ("G2", "gather_gemm_per_tap")):
+        on_layers = uses[kernel][-9:]
+        sums = [sum(u[k] * n for u, n in zip(on_layers, counts.values())) for k in ("a1_ms", "ms")]
+        ahead = [f"{u['at'].split(' found')[0]} ({u['ms']:.4f} against {u['a1_ms']:.4f} ms)"
+                 for u in on_layers if u["a1_ms"] > u["ms"]]
+        print(f"A1 against {label} over the {sum(counts.values())} convs of a forward (f32 "
+              f"output, batch 1): A1 {sums[0]:.4f} ms, {label} {sums[1]:.4f} ms; {label} faster "
+              f"than A1 at: {ahead or 'no shape'}")
 
 
 def probe_phase(dev, convs):
@@ -1063,6 +1153,7 @@ def main():
     kernels += probe_entries
     small_train_check(torch.float32)
     small_train_check(torch.bfloat16)
+    step_determinism(dev)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -42,7 +42,7 @@ class VoxelRCNN(nn.Module):
                  max_points_per_voxel=None,
                  backbone_filters: Tuple[int, ...] = (16, 32, 64, 128),
                  backbone_caps: Tuple[int, ...] = (80000, 60000, 40000, 40000),
-                 mm: bool = False, dense_tail: bool = False,
+                 mm: bool = True, dense_tail: bool = False,
                  num_rois: int = 500, num_rois_test: int = 200, roi_grid_size: int = 6,
                  roi_per_image: int = 130, rpn_nms=None,
                  bev_layer_nums=(5, 5), bev_layer_strides=(1, 2),

@@ -309,7 +309,7 @@ class VoxelRCNNProtoHead(nn.Module):
     def __init__(self, scale_grids, scale_channels, num_rois: int = 500,
                  roi_per_image: int = 130, grid_size: int = 6,
                  voxel_size=(0.1, 0.1, 0.15),
-                 point_cloud_range=(-75.2, -75.2, -2.0, 75.2, 75.2, 4.0), mm: bool = False,
+                 point_cloud_range=(-75.2, -75.2, -2.0, 75.2, 75.2, 4.0), mm: bool = True,
                  shared_fc: Tuple[int, ...] = (256, 256), dp_ratio: float = 0.3,
                  proto_ramp_steps: int = 5000, proto_weight: float = 0.2,
                  rcnn_proto_weight: float = 1.0, fg_ratio: float = 0.5, reg_fg_thresh=0.3,

@@ -5,8 +5,10 @@ The JAX package's probe scripts asked one question of the TPU in seven
 spellings: how should the gathered rows reach the matrix unit? On Hopper they
 reduce to four kernels, each a design of its own:
 
-* G1 ``gather_gemm_flat`` (``csrc/gather_gemm_flat.cu``): the tile's whole
-  flattened operand ``(TILE, K*Cin)`` gathered first, then one product.
+* G1 ``gather_gemm_flat`` (``csrc/gather_gemm_flat.cu``): one dense product
+  over the flattened ``K*Cin`` reduction, gathered rows zero-filled where a
+  tap is unfound, on bf16 tensor cores (exact f32 FMAs for f32 operands);
+  tiles where no row finds a tap are written as zeros and skipped.
   Replaces ``scripts/exp_pallas_gather.py:82``,
   ``scripts/exp_gather_variants.py:107``, ``scripts/exp_r2_lowering.py:213``
   and ``scripts/exp_r2h_gather2.py:99``.
@@ -30,20 +32,57 @@ No model path calls these kernels: they are run by
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .cuda_build import DTYPE_CODES, load, on_cuda
+from .gather_gemm import MAX_SMEM, SMS, STAGES, _padded, _round_up
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "gather_gemm_flat": [_PTR] * 5 + [_INT] * 7 + [_PTR],
+    "gather_gemm_flat": [_PTR] * 5 + [_INT] * 8 + [_PTR],
     "gather_gemm_per_tap": [_PTR] * 5 + [_INT] * 6 + [_PTR],
     "lane_gather_gemm": [_PTR] * 5 + [_INT] * 6 + [_PTR],
     "lane_gather": [_PTR] * 3 + [_INT] * 5 + [_PTR],
 }
-# taps a rulebook may have: kernel G1 keeps a tile's (64, K) rows in shared memory
+# taps a rulebook may have: kernel G1 keeps a tile's (TM, K) rows in shared memory
 MAX_TAPS = 256
+G1_TILE_ROWS = (128, 64)
+
+
+def g1_staged_itemsize(dtype, round_bf16: bool) -> int:
+    """Bytes of an operand element as kernel G1 stages it: bf16 for bf16
+    operands and for f32 ones rounded in the kernel, else f32."""
+    return 2 if round_bf16 or dtype == torch.bfloat16 else 4
+
+
+def g1_staged_depth(itemsize: int) -> int:
+    """Flattened columns G1 stages per step: 64 bf16 (four MMA depths of
+    16), 32 f32."""
+    return 64 if itemsize == 2 else 32
+
+
+def g1_smem_bytes(tile_rows: int, k: int, cout: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of G1, as ``csrc/gather_gemm_flat.cu``
+    lays it out: the (TM, K) slab of table rows, then the stage buffers (TM
+    gathered rows and the W slab, rows padded by 16 bytes)."""
+    per, kc = 16 // itemsize, g1_staged_depth(itemsize)
+    nt = _padded(cout, (16, 32, 64, 128))
+    stage = (tile_rows * (kc + per) + kc * (nt + per)) * itemsize
+    return _round_up(tile_rows * k * 4, 16) + STAGES * stage
+
+
+@functools.lru_cache(maxsize=None)
+def g1_tile_rows(n: int, k: int, cout: int, itemsize: int) -> int:
+    """Output rows per block of G1, by the rule of ``a1_tile_rows``: 128
+    where that fits shared memory and gives every SM a block (counting the
+    column tiles above 128 output channels), else 64."""
+    fits = [tm for tm in G1_TILE_ROWS if g1_smem_bytes(tm, k, cout, itemsize) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(f"no tile of kernel G1 fits K={k}, Cout={cout}")
+    col_tiles = -(-cout // _padded(cout, (16, 32, 64, 128)))
+    return next((tm for tm in fits if -(-n // tm) * col_tiles >= SMS), fits[-1])
 
 
 def _gathered(table, idx, found):
@@ -69,6 +108,38 @@ def gather_gemm_flat_reference(table, idx, found, w_flat, round_bf16=False):
     k = idx.shape[-1]
     w = _rounded(w_flat, round_bf16).reshape(k, table.shape[-1], -1)
     return torch.einsum("nkc,kcd->nd", _gathered(_rounded(table, round_bf16), idx, found), w)
+
+
+def gather_gemm_flat_tiled(table, idx, found, w_flat, round_bf16=False, tile_rows=None):
+    """Kernel G1's order of arithmetic in plain PyTorch (for tests; small
+    sizes only): per tile of ``tile_rows`` output rows the rulebook slab as
+    table rows or -1; a tile where no row finds a tap is zeros and nothing
+    else (never multiplied: a NaN in W does not reach it); otherwise the
+    flattened operand, zero where a tap is unfound or its idx outside the
+    table, in the staged type, its ``K*Cin`` columns padded to a multiple of
+    16, multiplied a staged depth at a time and summed in f32."""
+    (v, cin), (n, k), cout = table.shape, idx.shape, w_flat.shape[1]
+    itemsize = g1_staged_itemsize(table.dtype, round_bf16)
+    staged = torch.bfloat16 if itemsize == 2 else torch.float32
+    tm = tile_rows or g1_tile_rows(n, k, cout, itemsize)
+    q, kc = k * cin, g1_staged_depth(itemsize)
+    qp = _round_up(q, 16)
+    w = torch.zeros((qp, cout), dtype=staged)
+    w[:q] = w_flat.to(staged)
+    ok = (idx >= 0) & (idx < v)
+    if found is not None:
+        ok = ok & found
+    out = torch.zeros((n, cout), dtype=torch.float32)
+    for n0 in range(0, n, tm):
+        rows = torch.where(ok[n0:n0 + tm], idx[n0:n0 + tm].long(), -1)
+        if not bool((rows >= 0).any()):
+            continue  # the skip: zeros, no gather, no product
+        a = torch.zeros((rows.shape[0], qp), dtype=staged)
+        g = table.to(staged)[rows.clamp(min=0)]
+        a[:, :q] = torch.where((rows >= 0)[..., None], g, 0).reshape(rows.shape[0], q)
+        for q0 in range(0, qp, kc):
+            out[n0:n0 + tm] += a[:, q0:q0 + kc].float() @ w[q0:q0 + kc].float()
+    return out
 
 
 def gather_gemm_per_tap_reference(table, idx, found, w):
@@ -152,11 +223,12 @@ def _launch(name, fn, table, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def gather_gemm_flat(table, idx, found, w_flat, round_bf16=False):
+def gather_gemm_flat(table, idx, found, w_flat, round_bf16=False, *, tile_rows=None):
     """out[n] = concat_k(found[n, k] ? table[idx[n, k]] : 0) @ w_flat in f32;
     ``found=None`` reads every tap; ``round_bf16`` (f32 operands only) rounds
     table and weights to bf16 inside the kernel. CUDA tensors run kernel G1;
-    CPU tensors the plain version."""
+    CPU tensors the plain version. ``tile_rows`` (64 or 128) overrides the
+    output rows per block (``g1_tile_rows``)."""
     _check_table("table", table, idx, found, cin_axis=1)
     if w_flat.dim() != 2:
         raise ValueError(f"w_flat must be (K*Cin, Cout), got {tuple(w_flat.shape)}")
@@ -167,10 +239,12 @@ def gather_gemm_flat(table, idx, found, w_flat, round_bf16=False):
         return gather_gemm_flat_reference(table, idx, found, w_flat, round_bf16)
     fn = load("gather_gemm_flat", _ARGTYPES["gather_gemm_flat"])
     (v, cin), (n, k), cout = table.shape, idx.shape, w_flat.shape[1]
+    if tile_rows is None:
+        tile_rows = g1_tile_rows(n, k, cout, g1_staged_itemsize(table.dtype, round_bf16))
     out = torch.empty((n, cout), dtype=torch.float32, device=table.device)
     _launch("gather_gemm_flat", fn, table, table.data_ptr(), idx.data_ptr(),
             None if found is None else found.data_ptr(), w_flat.data_ptr(), out.data_ptr(),
-            v, n, k, cin, cout, DTYPE_CODES[table.dtype], int(round_bf16))
+            v, n, k, cin, cout, DTYPE_CODES[table.dtype], int(round_bf16), tile_rows)
     gather_gemm_flat.launches += 1
     return out
 

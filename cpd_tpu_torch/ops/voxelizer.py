@@ -2,9 +2,10 @@
 cpd_tpu/ops/voxelizer.py).
 
 Sort the points by (voxel key, point index), segment-mean their features into
-a fixed ``max_voxels`` table in ascending key order, and emit the voxel
-coords and a validity mask. Slot ``max_voxels`` of the segment sums is the
-overflow bucket: voxels beyond the cap (the highest keys) are dropped there.
+a fixed ``max_voxels`` table in ascending key order (a sorted segment sum, in
+point order: deterministic on the card too), and emit the voxel coords and a
+validity mask. Slot ``max_voxels`` of the segment sums is the overflow
+bucket: voxels beyond the cap (the highest keys) are dropped there.
 """
 from __future__ import annotations
 
@@ -88,13 +89,17 @@ def voxelize(points, spec: VoxelizerSpec, valid=None) -> VoxelizedFrame:
         iota = torch.arange(p_cap, dtype=torch.int64, device=dev)
         seg_start = torch.cummax(torch.where(first, iota, 0), 0).values
         point_ok = point_ok & (iota - seg_start < spec.max_points_per_voxel)
-    slot_clipped = torch.where(point_ok & (slot < v_cap), slot, v_cap).to(torch.int64)
-    # feature sums and point counts in ONE index_add_: counts ride as a ones column
+    # feature sums and point counts in ONE sorted segment sum: counts ride as
+    # a ones column. The points are sorted by slot, so every slot's points are
+    # contiguous and each sum runs in point order (no atomics: the same bits
+    # on every run). Points that add nothing (invalid, past max_points) keep
+    # their place with zeros; slot v_cap gathers the voxels past the cap.
+    segment = torch.clamp(slot, 0, v_cap).to(torch.int64)
     aug = torch.cat([sorted_pts, torch.ones((p_cap, 1), dtype=points.dtype, device=dev)], 1)
     aug = torch.where(point_ok[:, None], aug, 0.0)
-    sums = torch.zeros((v_cap + 1, c + 1), dtype=points.dtype, device=dev)
-    sums.index_add_(0, slot_clipped, aug)
-    sums = sums[:v_cap]
+    lengths = torch.zeros(v_cap + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, segment, torch.ones_like(segment))  # integer counts: exact in any order
+    sums = torch.segment_reduce(aug, "sum", lengths=lengths, unsafe=True)[:v_cap]
     counts = sums[:, -1].to(torch.int32)
     feats = sums[:, :-1] / torch.clamp(counts[:, None], min=1).to(points.dtype)
     key_slot = torch.where(first & (slot < v_cap), slot, v_cap).to(torch.int64)

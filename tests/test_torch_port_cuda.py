@@ -14,6 +14,8 @@ from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch.ops import gather_gemm as gg
 from cpd_tpu_torch.ops.gather_gemm import (gather_gemm, gather_gemm_dw,
                                            gather_gemm_dw_reference, gather_gemm_reference)
+from cpd_tpu_torch.ops.voxelizer import VoxelizerSpec, voxelize_batch
+from cpd_tpu_torch.utils.synthetic import make_lidar_frame
 from cpd_tpu_torch.utils.weights import seeded_state_dict
 
 
@@ -311,25 +313,65 @@ PROBE_SHAPES = [(1000, 27, 5, 16), (777, 27, 32, 64), (300, 3, 128, 128), (65, 2
 def test_gather_gemm_flat_kernel_matches_plain(cuda, n, k, cin, cout):
     """Kernel G1 against its plain version on ragged sizes, K = 3, 5-channel
     rows (no 16-byte loads), junk idx under unfound taps, idx outside the
-    table: f32 to 1e-4 of the output's scale; f32 rounded to bf16 in the
-    kernel and bf16 operands to 1e-4 too (the plain version rounds the same
-    operands and both sum in f32); with and without ``found``; a second
-    launch gives the same bits."""
+    table, at both tile heights: f32 (exact FMAs) to 1e-4 of the output's
+    scale; f32 rounded to bf16 in the kernel and bf16 operands (tensor cores)
+    to 1e-4 too (the plain version rounds the same operands and both sum in
+    f32); with and without ``found``; a second launch gives the same bits."""
     table, idx, found, w = _probe_operands(cuda, n, k, cin, cout, n)
-    launches = gp.gather_gemm_flat.launches
-    out = gp.gather_gemm_flat(table, idx, found, w)
-    _close_to_plain(out, gp.gather_gemm_flat_reference(table, idx, found, w), 1e-4)
-    assert torch.equal(out, gp.gather_gemm_flat(table, idx, found, w))
-    out = gp.gather_gemm_flat(table, idx, found, w, round_bf16=True)
-    _close_to_plain(out, gp.gather_gemm_flat_reference(table, idx, found, w, True), 1e-4)
     tb, wb = table.bfloat16(), w.bfloat16()
-    out = gp.gather_gemm_flat(tb, idx, found, wb)
-    _close_to_plain(out, gp.gather_gemm_flat_reference(tb, idx, found, wb), 1e-4)
     inside = idx.clamp(0, table.shape[0] - 1)  # without found every idx is read
-    out = gp.gather_gemm_flat(table, inside, None, w)
-    _close_to_plain(out, gp.gather_gemm_flat_reference(table, inside, None, w), 1e-4)
+    launches = gp.gather_gemm_flat.launches
+    for tile_rows in (None, 64, 128):
+        for t, i, f, ww, rb in ((table, idx, found, w, False), (table, idx, found, w, True),
+                                (tb, idx, found, wb, False), (table, inside, None, w, False),
+                                (tb, inside, None, wb, False)):
+            out = gp.gather_gemm_flat(t, i, f, ww, rb, tile_rows=tile_rows)
+            _close_to_plain(out, gp.gather_gemm_flat_reference(t, i, f, ww, rb), 1e-4)
+            assert torch.equal(out, gp.gather_gemm_flat(t, i, f, ww, rb, tile_rows=tile_rows))
     torch.cuda.synchronize()
-    assert gp.gather_gemm_flat.launches == launches + 5
+    assert gp.gather_gemm_flat.launches == launches + 30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,round_bf16", [(torch.float32, False), (torch.float32, True),
+                                              (torch.bfloat16, False)])
+@pytest.mark.parametrize("tile_rows", [64, 128])
+def test_gather_gemm_flat_kernel_skips_tiles_that_find_nothing(cuda, tile_rows, dtype,
+                                                               round_bf16):
+    """A rulebook padded to its cap: rows from 300 on find nothing, so the
+    tiles past it are written as zeros and never multiplied (with NaN
+    weights the live tiles turn NaN and the skipped ones stay exactly 0);
+    with finite weights all of it equals the plain version and the CPU
+    restatement of the kernel's tiles."""
+    n, k, cin, cout = 1000, 27, 16, 32
+    table, idx, found, w = _probe_operands(cuda, n, k, cin, cout, 5)
+    found[300:] = False
+    idx = torch.where(found, idx, 10**8).to(torch.int32)
+    t, ww = table.to(dtype), w.to(dtype)
+    out = gp.gather_gemm_flat(t, idx, found, torch.full_like(ww, float("nan")), round_bf16,
+                              tile_rows=tile_rows)
+    first_dead = -(-300 // tile_rows) * tile_rows
+    assert torch.equal(out[first_dead:], torch.zeros_like(out[first_dead:]))
+    assert bool(out[:300].isnan().all())
+    out = gp.gather_gemm_flat(t, idx, found, ww, round_bf16, tile_rows=tile_rows)
+    _close_to_plain(out, gp.gather_gemm_flat_reference(t, idx, found, ww, round_bf16), 1e-4)
+    tiled = gp.gather_gemm_flat_tiled(t.cpu(), idx.cpu(), found.cpu(), ww.cpu(), round_bf16,
+                                      tile_rows)
+    _close_to_plain(out.cpu(), tiled, 1e-4)  # the CPU restatement of the kernel's order
+
+
+@pytest.mark.cuda
+def test_gather_gemm_flat_kernel_asks_for_the_shared_memory_the_wrapper_counts(cuda):
+    """``g1_smem_bytes`` (which chooses the tile, tested on the CPU) equals what
+    the built kernel computes for a launch."""
+    for code, round_bf16, itemsize in ((0, 0, 4), (0, 1, 2), (1, 0, 2)):
+        for k, cout in [(27, 16), (27, 32), (27, 64), (27, 128), (3, 128), (27, 200), (256, 7)]:
+            for tm in (64, 128):
+                assert (gg.kernel_smem_bytes("gather_gemm_flat", k, cout, code, round_bf16, tm)
+                        == gp.g1_smem_bytes(tm, k, cout, itemsize))
+    table, idx, found, w = _probe_operands(cuda, 64, 3, 8, 16, 0)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # no instance of 96 rows
+        gp.gather_gemm_flat(table, idx, found, w, tile_rows=96)
 
 
 @pytest.mark.cuda
@@ -436,3 +478,27 @@ def test_dense_tail_on_card_matches_sparse(cuda, dtype):
     bev_s = height_compression(*outs[False]["encoded"]).float()
     bev_d = outs[True]["encoded_bev"].float()
     assert float((bev_s - bev_d).abs().max()) <= tol * float(bev_s.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_points", [None, 5])
+def test_voxelizer_gives_the_same_bits_twice(cuda, max_points):
+    """The voxelizer on a 200k-point frame at the bench configuration (90k
+    voxel cap): two calls give the same bits (the segment sum runs in point
+    order, no atomics), and the card agrees with the CPU: integers exactly,
+    means within 1e-6 of their scale (the same sums; division rounding)."""
+    pts, valid = make_lidar_frame(np.random.default_rng(0), 200_000)
+    spec = VoxelizerSpec.create((-75.2, -75.2, -2.0, 75.2, 75.2, 4.0), (0.1, 0.1, 0.15), 90_000,
+                                max_points_per_voxel=max_points)
+    points, mask = torch.from_numpy(pts)[None], torch.from_numpy(valid)[None]
+    first = voxelize_batch(points.to(cuda), spec, mask.to(cuda))
+    second = voxelize_batch(points.to(cuda), spec, mask.to(cuda))
+    cpu = voxelize_batch(points, spec, mask)
+    for name, a, b, c in zip(first._fields, first, second, cpu):
+        assert torch.equal(a, b), f"{name}: two calls gave different bits"
+        if name == "features":
+            scale = float(c.abs().max())
+            assert float((a.cpu() - c).abs().max()) <= 1e-6 * scale, name
+        else:
+            assert torch.equal(a.cpu(), c), name
+    assert int(first.valid.sum()) > 10_000

@@ -8,7 +8,10 @@ sides. Integer outputs (masks, key sets) match exactly. At f32
 bf16 within the tier of ``tests/test_dense_tail.py`` (JAX asks its conv for a
 bf16 result, torch's accumulates in f32 and rounds once). Gradients at f32:
 dense against sparse in the port within 2e-5 of each gradient's scale, and
-against ``jax.grad`` within 1e-3 of it.
+against ``jax.grad`` within 1e-3 of it. This file: the sparse functions of the
+tail and the backbone in eval mode; training mode is in
+``test_torch_port_dense_tail_train.py``, the whole predict in
+``test_torch_port_dense_tail_predict.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -16,18 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from __graft_entry__ import _TINY, _make_batch
 from cpd_tpu.models import backbone3d as jbb
-from cpd_tpu.models.detector import VoxelRCNN as JVoxelRCNN
 from cpd_tpu.ops import sparse as jsparse
 from cpd_tpu.ops.sparse import INVALID_KEY, GridSpec
 from cpd_tpu_torch.models import backbone3d, bev
-from cpd_tpu_torch.models.detector import VoxelRCNN
 from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch.ops.gather_gemm import gather_gemm
-from cpd_tpu_torch.utils.weights import grads_to_jax_tree, state_dict_from_jax
-from tests.test_torch_port_models import (_random_sparse, bf16_close, init_pair,
-                                          jax_nms_with_clip_iou, seeded_jax_variables)
+from cpd_tpu_torch.utils.weights import state_dict_from_jax
+from tests.test_torch_port_models import _random_sparse, init_pair, seeded_jax_variables
 
 GRID = GridSpec(32, 32, 26)
 PGRID = sparse.GridSpec(*GRID)
@@ -214,175 +213,3 @@ def test_dense_tail_keeps_the_parameter_tree():
         jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), *args)), 0)
     for m in models:
         m.load_state_dict(state_dict_from_jax(variables, m), strict=True)
-
-
-@pytest.fixture(scope="module")
-def train_pair():
-    """f32 training mode (batch statistics): loss = sum(encoded^2) and its
-    gradients in JAX (dense tail) and in the port (dense and sparse tail)."""
-    rng = np.random.default_rng(1)
-    feats, keys = _random_sparse(rng, 2, 300)
-    jm = jbb.VoxelResBackBone8x(grid=GRID, num_filters=FILTERS, caps=CAPS, mm=False,
-                                dense_tail=True, compute_dtype=None, remat=False)
-    models = {d: backbone3d.VoxelResBackBone8x(PGRID, 5, FILTERS, CAPS, compute_dtype=None,
-                                               dense_tail=d) for d in (True, False)}
-    v = init_pair(jm, models[True], jnp.asarray(feats), jnp.asarray(keys), True)
-    models[False].load_state_dict(models[True].state_dict(), strict=True)
-
-    def loss_fn(params):
-        out, upd = jm.apply({"params": params, "batch_stats": v["batch_stats"]},
-                            jnp.asarray(feats), jnp.asarray(keys), True, mutable=["batch_stats"])
-        return jnp.sum(out["encoded"][0].astype(jnp.float32) ** 2), upd
-
-    (jloss, jupd), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(v["params"])
-    runs = {}
-    for dense, m in models.items():
-        m.train()
-        loss = (m(_t(feats), _t(keys))["encoded"][0].float() ** 2).sum()
-        loss.backward()
-        runs[dense] = (float(loss.detach()), m)
-    return runs, float(jloss), jupd, jgrads, v
-
-
-def test_dense_tail_train_loss_and_batch_stats(train_pair):
-    runs, jloss, jupd, _, _ = train_pair
-    (ld, md), (ls, ms) = runs[True], runs[False]
-    np.testing.assert_allclose(ld, ls, rtol=1e-4)
-    np.testing.assert_allclose(ld, jloss, rtol=1e-4)
-    # masked moments over the same occupied sites, and the same running update
-    for name in ("down4", "conv_out"):
-        jst = jupd["batch_stats"]["branch0"][name]["MaskedBatchNorm_0"]
-        for m in (md, ms):
-            bn = getattr(m.branch0, name).bn
-            np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(jst["mean"]),
-                                       rtol=1e-4, atol=1e-5)
-            np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(jst["var"]),
-                                       rtol=1e-4, atol=1e-5)
-
-
-GRAD_LEAVES = ["conv_input.weight", "down3.weight", "res3b.conv2.weight", "down4.weight",
-               "res4a.conv1.weight", "res4b.conv2.bn.weight", "conv_out.weight",
-               "conv_out.bn.bias"]
-
-
-@pytest.mark.parametrize("leaf", GRAD_LEAVES)
-def test_dense_tail_gradients_match_sparse_path(train_pair, leaf):
-    """Stage-4 parameters and what lies upstream (through kernels A1 and A2's
-    plain versions): 2e-5 of the gradient's scale, as tests/test_dense_tail.py."""
-    runs, *_ = train_pair
-    gd = dict(runs[True][1].branch0.named_parameters())[leaf].grad.numpy()
-    gs = dict(runs[False][1].branch0.named_parameters())[leaf].grad.numpy()
-    scale = max(float(np.abs(gs).max()), 1e-6)
-    assert scale > 1e-4
-    np.testing.assert_allclose(gd / scale, gs / scale, atol=2e-5, err_msg=leaf)
-
-
-def test_dense_tail_gradients_match_jax_grad(train_pair):
-    """Every parameter gradient of the port's dense tail against jax.grad of
-    the JAX dense tail, 1e-3 of each leaf's scale."""
-    runs, _, _, jgrads, v = train_pair
-    tree = grads_to_jax_tree(runs[True][1], v["params"])
-    flat_p = jax.tree_util.tree_leaves_with_path(tree)
-    flat_j = dict(jax.tree_util.tree_leaves_with_path(jax.tree_util.tree_map(np.asarray, jgrads)))
-    assert len(flat_p) == len(flat_j) > 60
-    for path, g in flat_p:
-        ref = flat_j[path]
-        scale = max(float(np.abs(ref).max()), 1e-6)
-        np.testing.assert_allclose(g / scale, ref / scale, atol=1e-3,
-                                   err_msg=jax.tree_util.keystr(path))
-
-
-def test_dense_tail_light_branch_mm():
-    """The light MM branch with the dense tail (one block at stage 4, no
-    conv_out) against JAX and against the port's sparse path."""
-    rng = np.random.default_rng(2)
-    feats, keys = _random_sparse(rng, 1, 250)
-    feats1, keys1 = _random_sparse(rng, 1, 200)
-    kw = dict(grid=GRID, num_filters=FILTERS, caps=CAPS, mm=True, compute_dtype=None)
-    jm = jbb.VoxelResBackBone8x(**kw, dense_tail=True)
-    pd = backbone3d.VoxelResBackBone8x(PGRID, 5, FILTERS, CAPS, compute_dtype=None, mm=True,
-                                       dense_tail=True)
-    args = tuple(jnp.asarray(a) for a in (feats, keys))
-    args1 = tuple(jnp.asarray(a) for a in (feats1, keys1))
-    v = init_pair(jm, pd, *args, True, *args1)
-    ps = backbone3d.VoxelResBackBone8x(PGRID, 5, FILTERS, CAPS, compute_dtype=None, mm=True)
-    ps.load_state_dict(pd.state_dict(), strict=True)
-    ref, _ = jax.jit(lambda v: jm.apply(v, *args, True, *args1, mutable=["batch_stats"]))(v)
-    outs = []
-    for m in (pd, ps):
-        m.train()
-        with torch.no_grad():
-            outs.append(m(_t(feats), _t(keys), _t(feats1), _t(keys1)))
-    out_d, out_s = outs
-    assert "encoded_bev" in out_d and "encoded_mm" not in out_d
-    for name in ("x_conv4", "x_conv4_mm"):
-        (fd, kd, _), (fs, ks, _), (rf, rk, _) = out_d[name], out_s[name], ref[name]
-        np.testing.assert_array_equal(kd.numpy(), np.asarray(rk), err_msg=name)
-        assert torch.equal(kd, ks)
-        _f32_close(fd, rf, name)
-        _f32_close(fd, fs, name)
-
-
-# ---- the whole slice ----
-
-@pytest.fixture(scope="module")
-def predict_pair():
-    """``VoxelRCNN.predict`` with ``dense_tail=True`` in both packages at
-    ``_TINY`` (bf16, the JAX model's only dtype), batch 2, same weights."""
-    batch = _make_batch(b=2, with_proto=False)
-    points = np.array(batch["points"])
-    jm = JVoxelRCNN(**_TINY, mm=False, dense_tail=True)
-    jbatch = {"points": batch["points"], "points_valid": batch["points_valid"]}
-    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jbatch, False))
-    variables = seeded_jax_variables(shapes, 0)
-    jv = jax.tree_util.tree_map(jnp.asarray, variables)
-    with jax_nms_with_clip_iou():
-        jout = jax.jit(lambda v, x: jm.apply(v, x, False))(jv, jbatch)
-        keep = ("batch_box_preds", "batch_cls_preds", "roi_labels", "roi_valid")
-        jpred = jax.jit(lambda v, o: jm.apply(v, o, method=JVoxelRCNN.post_processing))(
-            jv, {k: jout[k] for k in keep})
-    pm = VoxelRCNN(**{k: v for k, v in _TINY.items() if k != "remat"}, dense_tail=True)
-    pm.load_state_dict(state_dict_from_jax(variables, pm), strict=True)
-    pm.eval()
-    pbatch = {"points": torch.from_numpy(points),
-              "points_valid": torch.ones(points.shape[:2], dtype=torch.bool)}
-    with torch.no_grad():
-        pout = pm(pbatch)
-        ppred = pm.predict(pbatch)
-    return pout, ppred, jout, jpred
-
-
-@pytest.mark.parametrize("stage", ["x_conv3", "x_conv4", "encoded"])
-def test_predict_dense_tail_backbone_bf16(predict_pair, stage):
-    pout, _, jout, _ = predict_pair
-    (pf, pk, _), (jf, jk, _) = pout["backbone_out"][stage], jout["backbone_out"][stage]
-    assert pf.dtype == torch.bfloat16
-    np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
-    bf16_close(_np(pf), _np(jf), stage)
-    assert "encoded_bev" not in pout["backbone_out"]  # consumed as the BEV map
-
-
-@pytest.mark.parametrize("head", ["hm", "center", "center_z", "dim", "rot"])
-def test_predict_dense_tail_head_maps_bf16(predict_pair, head):
-    pout, _, jout, _ = predict_pair
-    bf16_close(_np(pout["head_preds"][head]), _np(jout["head_preds"][head]), head)
-
-
-def test_predict_dense_tail_detections_match(predict_pair):
-    """Detections as sets, at the tiers of tests/test_torch_port_predict.py:
-    boxes within 0.5 m, scores within 0.05, labels exact."""
-    _, ppred, _, jpred = predict_pair
-    n_valid = 0
-    for b in range(2):
-        pb, jb = _np(ppred["pred_boxes"])[b], _np(jpred["pred_boxes"])[b]
-        p_idx = list(np.nonzero(_np(ppred["pred_valid"])[b] > 0)[0])
-        r_idx = list(np.nonzero(_np(jpred["pred_valid"])[b] > 0)[0])
-        assert len(p_idx) == len(r_idx)
-        for i in p_idx:
-            d = [float(np.abs(pb[i, :6] - jb[j, :6]).max()) for j in r_idx]
-            j = r_idx.pop(int(np.argmin(d)))
-            assert min(d) <= 0.5, f"slot {i}: nearest box {min(d)} m away"
-            assert _np(ppred["pred_labels"])[b][i] == _np(jpred["pred_labels"])[b][j]
-            assert abs(_np(ppred["pred_scores"])[b][i] - _np(jpred["pred_scores"])[b][j]) <= 0.05
-            n_valid += 1
-    assert n_valid > 4

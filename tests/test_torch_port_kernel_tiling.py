@@ -1,4 +1,4 @@
-"""The host side of kernels A1 and A2, on the CPU.
+"""The host side of kernels A1, A2 and G1, on the CPU.
 
 The CUDA kernels run on a card only (``tests/test_torch_port_cuda.py``). What
 can be held here: ``gather_gemm_tiled`` / ``gather_gemm_dw_tiled``, which
@@ -9,6 +9,10 @@ against the Pallas kernels of ``cpd_tpu.ops.pallas_conv`` in interpret mode
 (f32, 1e-4 of the output's scale: the same products summed in another order);
 and every choice the wrappers make for a launch: tile rows, chunk rows and
 taps, shared memory, scratch, and the placement of a model on a device.
+For G1 (``ops/gather_probes.py``): ``gather_gemm_flat_tiled``, which restates
+its tiles, the skip of a tile where no row finds a tap, the zero fill of
+unfound taps and the flattened columns padded to 16, against the plain
+version; its tile rows and shared memory.
 """
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ import torch
 import jax.numpy as jnp
 from cpd_tpu.ops import pallas_conv
 from cpd_tpu_torch.ops import gather_gemm as gg
+from cpd_tpu_torch.ops import gather_probes as gp
 from cpd_tpu_torch.parallel import init_state
 from cpd_tpu_torch.utils.device import place, resolve_device
 
@@ -217,3 +222,89 @@ def test_place_needs_a_card_or_an_explicit_device():
     assert placed is model and next(placed.parameters()).device.type == "cpu"
     state = init_state(model, {"OPTIMIZER": "adam_onecycle", "LR": 0.003}, 10, device="cpu")
     assert state.model is model and model.training
+
+
+# n, k, cin, cout: 5-channel rows (135 columns padded to 144), K = 3, ragged
+# tiles, more output channels than one column tile, odd widths
+G1_SHAPES = [(300, 27, 5, 16), (200, 3, 128, 128), (65, 27, 16, 200), (513, 27, 48, 16),
+             (130, 27, 12, 7)]
+
+
+def _g1_operands(n, k, cin, cout, v=50, padded_from=None):
+    """f32 operands; junk idx under unfound taps and a few found taps outside
+    the table; rows from ``padded_from`` on find nothing (a padded rulebook)."""
+    rng = np.random.default_rng(n + k + cin)
+    table = torch.from_numpy(rng.normal(size=(v, cin)).astype(np.float32))
+    found = rng.random((n, k)) < 0.3
+    if padded_from is not None:
+        found[padded_from:] = False
+    idx = rng.integers(0, v, (n, k))
+    idx[rng.random((n, k)) < 0.05] = v + 3
+    idx[rng.random((n, k)) < 0.05] = -2
+    idx = np.where(found, idx, 10**8).astype(np.int32)
+    w = torch.from_numpy((rng.normal(size=(k * cin, cout)) * 0.1).astype(np.float32))
+    return table, torch.from_numpy(idx), torch.from_numpy(found), w
+
+
+@pytest.mark.parametrize("tile_rows", [None, 64, 128])
+@pytest.mark.parametrize("n,k,cin,cout", G1_SHAPES)
+def test_g1_tiled_order_matches_plain(n, k, cin, cout, tile_rows):
+    """f32, f32 rounded to bf16, bf16, and without ``found``: the tiles, the
+    zero fill and the padded flattened columns sum to the plain version
+    within 1e-4 of the output's scale (the same rounded operands, f32 sums)."""
+    table, idx, found, w = _g1_operands(n, k, cin, cout)
+    inside = idx.clamp(0, table.shape[0] - 1)
+    for t, ww, i, f, rb in ((table, w, idx, found, False), (table, w, idx, found, True),
+                            (table.bfloat16(), w.bfloat16(), idx, found, False),
+                            (table, w, inside, None, False)):
+        _close(gp.gather_gemm_flat_tiled(t, i, f, ww, rb, tile_rows),
+               gp.gather_gemm_flat_reference(t, i, f, ww, rb), f"{t.dtype} round {rb}")
+
+
+@pytest.mark.parametrize("tile_rows", [64, 128])
+def test_g1_tiled_skips_tiles_that_find_nothing(tile_rows):
+    """A padded tail that fills whole tiles is zeros and is never multiplied:
+    with NaN weights the live tiles turn NaN and the skipped ones stay 0."""
+    n, cout = 700, 16
+    table, idx, found, w = _g1_operands(n, 27, 16, cout, padded_from=300)
+    nan_w = torch.full_like(w, float("nan"))
+    out = gp.gather_gemm_flat_tiled(table, idx, found, nan_w, tile_rows=tile_rows)
+    first_dead = -(-300 // tile_rows) * tile_rows  # the first tile with no found row
+    assert torch.equal(out[first_dead:], torch.zeros(n - first_dead, cout))
+    assert bool(out[:300].isnan().all())
+    _close(gp.gather_gemm_flat_tiled(table, idx, found, w, tile_rows=tile_rows),
+           gp.gather_gemm_flat_reference(table, idx, found, w), "padded rulebook")
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("b,n,k,cin,cout", LAYERS[:9])
+def test_g1_tile_rows_on_the_layer_shapes(b, n, k, cin, cout, itemsize):
+    tm = gp.g1_tile_rows(n, k, cout, itemsize)
+    assert tm == 128  # every layer of the bench frame has rows for 132 SMs
+    assert gp.g1_smem_bytes(tm, k, cout, itemsize) <= gg.MAX_SMEM // 2  # two blocks an SM
+
+
+def test_g1_tile_rows_small_launches_column_tiles_and_many_taps():
+    assert gp.g1_tile_rows(100, 27, 16, 2) == 64
+    assert gp.g1_tile_rows(132 * 128, 27, 16, 2) == 128
+    assert gp.g1_tile_rows(131 * 128, 27, 16, 2) == 64
+    assert gp.g1_tile_rows(66 * 128, 27, 200, 2) == 128  # two column tiles of 128
+    for itemsize in (2, 4):  # the slab of the most taps a rulebook may have still fits
+        assert gp.g1_smem_bytes(128, gp.MAX_TAPS, 128, itemsize) <= gg.MAX_SMEM
+
+
+def test_g1_smem_bytes_counts_slab_and_stages():
+    # a 128 x 27 slab of int32; 2 x (128 x (64 + 8) + 64 x (128 + 8)) bf16
+    assert gp.g1_smem_bytes(128, 27, 128, 2) == 128 * 27 * 4 + 2 * (128 * 72 + 64 * 136) * 2
+    # a 64 x 3 slab; 2 x (64 x (32 + 4) + 32 x (16 + 4)) f32
+    assert gp.g1_smem_bytes(64, 3, 10, 4) == 64 * 3 * 4 + 2 * (64 * 36 + 32 * 20) * 4
+    assert gp.g1_staged_itemsize(torch.float32, True) == gp.g1_staged_itemsize(torch.bfloat16,
+                                                                              False) == 2
+    assert gp.g1_staged_itemsize(torch.float32, False) == 4
+    assert (gp.g1_staged_depth(2), gp.g1_staged_depth(4)) == (64, 32)
+
+
+def test_g1_tile_rows_override_only_shapes_a_launch_on_the_cpu():
+    table, idx, found, w = _g1_operands(90, 3, 8, 8)
+    assert torch.equal(gp.gather_gemm_flat(table, idx, found, w, tile_rows=64),
+                       gp.gather_gemm_flat_reference(table, idx, found, w))

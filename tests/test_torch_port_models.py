@@ -298,7 +298,7 @@ def test_weight_bridge_strict_both_ways():
     batch = {"points": jnp.zeros((1, 64, 5)), "points_valid": jnp.ones((1, 64), bool)}
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), batch, False))
     variables = seeded_jax_variables(shapes, 0)
-    pm = VoxelRCNN(**kw)
+    pm = VoxelRCNN(**kw, mm=False)
     sd = state_dict_from_jax(variables, pm)
     n_leaves = len(jax.tree_util.tree_leaves(variables))
     assert len(sd) == n_leaves == len(pm.state_dict())

@@ -54,7 +54,7 @@ def slice_pair():
         keep = ("batch_box_preds", "batch_cls_preds", "roi_labels", "roi_valid")
         jpred = jax.jit(lambda v, o: jm.apply(v, o, method=JVoxelRCNN.post_processing))(
             jv, {k: jout[k] for k in keep})
-    pm = VoxelRCNN(**{k: v for k, v in _TINY.items() if k != "remat"})
+    pm = VoxelRCNN(**{k: v for k, v in _TINY.items() if k != "remat"}, mm=False)
     pm.load_state_dict(state_dict_from_jax(variables, pm), strict=True)
     pm.eval()
     pbatch = {"points": torch.from_numpy(points),
