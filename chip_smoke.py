@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --determinism RUNS [--no-cudnn]   # phase 11 alone
 
 Drives the port's paths at the bench configuration of the JAX package
 (bench.py: 3 classes, range +-75.2 x [-2, 4] m, voxels (0.1, 0.1, 0.15) m,
@@ -17,9 +18,10 @@ raising on failure:
 1. card: needs CUDA; prints the card's name and power limit;
 2. build: compiles every kernel source under cpd_tpu_torch/csrc/ (A1, A2,
    G1-G4) with nvcc for sm_90a, one process each, side by side, and prints
-   what ptxas reports per kernel (registers a thread, spills; for each of
-   G1's 24 instances apart) and the dynamic shared memory a block of A1, A2
-   and G1 asks for at the widest layer;
+   what ptxas reports per kernel (registers a thread, spills; for each
+   instance of G1, G3 and G4 apart, among G4's the transpose that G3 and
+   G4 share) and the dynamic shared memory a block of A1, A2 and G1 asks
+   for at the widest layer, and of G3's f32 product and G4 at P6/P7;
 3. kernel A1 against its plain PyTorch version on the (table, idx, found, W)
    of each of the 21 launches of one sparse-tail forward, recorded at the
    wrapper: f32 within atol/rtol 1e-4 (TF32 off), bf16 (the main path's
@@ -34,9 +36,11 @@ raising on failure:
    bit-equal) on (a) each probe's own operands (G1 at P1, P2, P4 and P5, G2
    at P3, G3 at P6, G4 at P7) and (b) the real operands of the 9 layer
    shapes recorded in 3, with times run in turns against A1 and the plain
-   version on the same operands, and A1 against G1 (the flat formulation)
-   and against G2 summed over a forward's 21 convs, with the shapes where
-   each is faster than A1; then the probes' entry point
+   version on the same operands (G3's and G4's times include the transpose
+   of their table, which is also timed alone), G1 against G3 on P5's f32
+   operands (the two exact-f32 products), and A1 against G1 (the flat
+   formulation) and G3, and against G2, summed over a forward's 21 convs,
+   with the shapes where each is faster than A1; then the probes' entry point
    (``probes.gather.run_probe`` for P1-P7) with the launch counts read
    around it;
 5. predict, sparse tail: cap-occupancy audit, A1 launch count (21 per
@@ -66,10 +70,14 @@ raising on failure:
 10. a small training step on the CPU and on the card, same weights, proposals
     and sampling uniforms: at f32 the losses agree to 1e-3 and the gradients
     to a cosine of 0.999; at bf16 (the main path's dtype) within a loose tier;
-11. step determinism (a report, not a gate): one training step run twice in
-    one process from the same state, the first forward tensor and the first
-    gradient that differ between the two, and the ops that PyTorch flags as
-    not deterministic.
+11. step determinism, a gate: one training step (loss_step + backward under
+    ``deterministic_cudnn``, as ``make_train_step`` runs it) three times in one
+    process from the same state, the third under
+    ``torch.use_deterministic_algorithms``: every forward tensor and gradient
+    bit-identical to the first run's; reported beside it, two runs without
+    the scope and the scope's cost in ms and device busy ms. With
+    ``--determinism RUNS`` only the build and this phase run, with RUNS runs
+    under the scope (``--no-cudnn``: the scope turns cuDNN off instead).
 
 The last two lines of stdout are the card line and a JSON object; the line
 before them is the kernels JSON. For each use of A1 and A2 it gives the
@@ -85,6 +93,7 @@ lists them, and the 9 layer shapes beside A1). No single PyTorch call
 computes a gather-GEMM, so ``library_ms`` is null except for G4, the gather
 alone, where it is ``torch.index_select``'s time.
 """
+import argparse
 import json
 import math
 import statistics
@@ -322,9 +331,10 @@ def kernel_resource_lines():
               f"{max(r[1] for r in rows)} registers a thread, "
               f"{sum(r[2] for r in rows)} bytes spilled, "
               f"{max(r[3] for r in rows)} bytes of static shared memory at most")
-    for kernel, regs, spilled, _ in cuda_build.kernel_resources("gather_gemm_flat"):
-        print(f"gather_gemm_flat instance {kernel}: {regs} registers a thread, {spilled} bytes "
-              f"spilled")
+    for name in ("gather_gemm_flat", "lane_gather_gemm", "lane_gather"):
+        for kernel, regs, spilled, smem in cuda_build.kernel_resources(name):
+            print(f"{name} instance {kernel}: {regs} registers a thread, {spilled} bytes "
+                  f"spilled, {smem} bytes of static shared memory")
     for code, what in ((1, "bf16"), (0, "f32")):
         tm = a1.a1_tile_rows(1, 24000, 27, 128, 128, 4 - 2 * code)
         plan = a1.a2_plan(48000, 27, 128, 128)
@@ -336,6 +346,9 @@ def kernel_resource_lines():
               f"(chunk rows, taps) = {plan} (48000 rows), G1 "
               f"{a1.kernel_smem_bytes('gather_gemm_flat', 27, 128, code, 0, tm_g1)} bytes at "
               f"{tm_g1} rows a tile")
+    print(f"shared memory a block of G3's f32 product at 27 x 64 -> 64 (P6): "
+          f"{gp.g3_smem_bytes(27, 64)} bytes, {gp.g3_threads(64)} threads; G4: "
+          f"{gp.g4_smem_bytes()} bytes, static")
 
 
 def cap_audit(model, batch):
@@ -685,18 +698,37 @@ def _tensors(x):
     return []
 
 
-def step_determinism(dev):
-    """One training step (loss_step and backward, the bench configuration,
-    batch 2, the labels placed once) run twice in one process from the same
-    weights, statistics and generator seed. Prints the first tensor that
-    differs between the two runs, in the order the forward made them (the
-    voxelizer's frames, then every module's output), then the first
-    parameter gradient that differs, and the ops that
-    ``torch.use_deterministic_algorithms(True, warn_only=True)`` flags in a
-    third run. Returns (first forward tensor, first gradient), None where the
-    runs agree bit for bit."""
+def _first_differences(run_a, run_b):
+    """(first forward tensor, first gradient) that differ between two runs
+    of one step, in the order the forward made them and in parameter order;
+    None where the runs agree bit for bit."""
+    (rec_a, _, grads_a), (rec_b, _, grads_b) = run_a, run_b
+    first_fwd = next((f"{name}[{i}]" for (name, ta), (_, tb) in zip(rec_a, rec_b)
+                      for i, (x, y) in enumerate(zip(ta, tb)) if not torch.equal(x, y)), None)
+    first_grad = next((n for (n, x), (_, y) in zip(grads_a, grads_b) if not torch.equal(x, y)),
+                      None)
+    return first_fwd, first_grad
+
+
+def step_determinism(dev, runs=2, cudnn=True):
+    """Phase 11, a gate. One training step (loss_step and backward, the bench
+    configuration, batch 2, the labels placed once) run ``runs`` times from
+    the same weights, statistics and generator seed, under
+    ``deterministic_cudnn`` as ``make_train_step`` runs it (``cudnn=False``:
+    with cuDNN off instead), and once more under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (PyTorch's
+    deterministic kernels where an op has them; the ops without one are
+    named): every run must equal the first bit for bit, every tensor the
+    forward made (the voxelizer's frames, then every module's output) and
+    every parameter gradient. Reported beside it: two runs without the
+    scope, and what the scope costs (ms of loss_step + backward, host clock,
+    synchronised, in turns; device busy ms under the profiler). Should the
+    gate fail, two runs with cuDNN off are compared before it raises, and
+    the error says whether they agreed: cuDNN's engines or the machine."""
+    import contextlib
     import warnings
     from cpd_tpu_torch.models import detector
+    from cpd_tpu_torch.parallel import deterministic_cudnn
     model = VoxelRCNN(**dict(BENCH, mm=True))
     model.load_state_dict(seeded_state_dict(model, 0), strict=True)
     model = place(model, dev).train()
@@ -704,10 +736,21 @@ def step_determinism(dev):
     batch, _ = labels_on_proposals(model, batch, n_labelled=min(40, batch["gt_boxes"].shape[1]))
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     voxelize = detector.voxelize_batch
+    scopes = {"deterministic_cudnn": deterministic_cudnn,
+              "cuDNN off": lambda: torch.backends.cudnn.flags(enabled=False),
+              "no scope": contextlib.nullcontext}
+    gated = "deterministic_cudnn" if cudnn else "cuDNN off"
 
-    def one_step():
+    def bare_step(scope):
         model.load_state_dict(start, strict=True)
         model.zero_grad(set_to_none=True)
+        with scopes[scope]():
+            loss, _ = model.loss_step(batch, generator=torch.Generator(device=dev).manual_seed(0))
+            loss.backward()
+        torch.cuda.synchronize()
+        return loss
+
+    def one_step(scope=gated):
         record = []
 
         def recorded_voxelize(*args, **kwargs):
@@ -719,35 +762,54 @@ def step_determinism(dev):
             for name, m in model.named_modules() if name]
         detector.voxelize_batch = recorded_voxelize
         try:
-            loss, _ = model.loss_step(batch, generator=torch.Generator(device=dev).manual_seed(0))
-            loss.backward()
+            loss = bare_step(scope)
         finally:
             detector.voxelize_batch = voxelize
             for h in hooks:
                 h.remove()
-        torch.cuda.synchronize()
         grads = [(n, p.grad.clone()) for n, p in model.named_parameters() if p.grad is not None]
         return record, float(loss.detach()), grads
 
-    (rec_a, loss_a, grads_a), (rec_b, loss_b, grads_b) = one_step(), one_step()
-    first_fwd = next((f"{name}[{i}]" for (name, ta), (_, tb) in zip(rec_a, rec_b)
-                      for i, (x, y) in enumerate(zip(ta, tb)) if not torch.equal(x, y)), None)
-    first_grad = next((n for (n, x), (_, y) in zip(grads_a, grads_b) if not torch.equal(x, y)),
-                      None)
+    first = one_step()
+    again = [one_step() for _ in range(runs - 1)]
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            one_step()
+            again.append(one_step())
     finally:
         torch.use_deterministic_algorithms(False)
+    differ = {f"run {r + 2}": _first_differences(first, run) for r, run in enumerate(again)}
     flagged = sorted({str(w.message).split(" does not have a deterministic")[0]
                       for w in caught if "deterministic" in str(w.message)})
-    print(f"step determinism (two loss_step + backward from the same state, {len(rec_a)} "
-          f"recorded forward outputs, {len(grads_a)} gradients): loss {loss_a!r} and {loss_b!r}; "
-          f"first forward tensor that differs: {first_fwd}; first gradient that differs: "
-          f"{first_grad}; ops flagged as not deterministic: {flagged or 'none'}", flush=True)
-    return first_fwd, first_grad
+    free = one_step("no scope"), one_step("no scope")
+    print(f"step determinism (loss_step + backward from the same state under {gated}, cuDNN "
+          f"{torch.backends.cudnn.version()}, {len(first[0])} recorded forward outputs, "
+          f"{len(first[2])} gradients; run {runs + 1} under deterministic algorithms): losses "
+          f"{[run[1] for run in [first] + again]}; first forward tensor and gradient that differ "
+          f"from run 1: {differ}; ops flagged as not deterministic: {flagged or 'none'}",
+          flush=True)
+    print(f"step determinism without the scope (report): losses {free[0][1]!r}, "
+          f"{free[1][1]!r}; first forward tensor and gradient that differ: "
+          f"{_first_differences(*free)}", flush=True)
+
+    times = {gated: [], "no scope": []}
+    for r in range(2 * TIMED_LOOPS):
+        scope = gated if r % 4 in (0, 3) else "no scope"  # in turns: with, without, without, ...
+        t0 = time.perf_counter()
+        bare_step(scope)
+        times[scope].append((time.perf_counter() - t0) * 1e3)
+    for scope, ms_list in times.items():
+        ms = statistics.median(ms_list)
+        print(f"loss_step + backward, {scope}: {ms:.2f} ms (median of {len(ms_list)}, in turns)",
+              flush=True)
+        device_profile(lambda: bare_step(scope), f"loss_step + backward, {scope}", ms, loops=2)
+    if any(any(d) for d in differ.values()):
+        off = one_step("cuDNN off"), one_step("cuDNN off")
+        raise AssertionError(f"one training step is not bit-identical twice: {differ}; two runs "
+                             f"with cuDNN off (losses {off[0][1]!r}, {off[1][1]!r}) differ at "
+                             f"{_first_differences(*off)}")
+    return differ
 
 
 def set_compute_dtype(model, dtype):
@@ -881,24 +943,36 @@ def hold_against_plain(label, kernel, plain, bf16, exact=False):
     return max_err, out.numel() * out.element_size()
 
 
-def probe_use(kernel_name, at, kernel, plain, third, tensors, ops, bf16):
+def probe_use(kernel_name, at, kernel, plain, third, tensors, ops, bf16, transpose=None):
     """Hold one probe kernel against its plain version on one set of
-    operands and time it in turns with the plain version and ``third``
-    (kernel A1 on the same operands, or for G4 the library call). Returns
-    the record of this use for the kernels line."""
+    operands and time it in turns with the plain version, ``third`` (kernel
+    A1 on the same operands, or for G4 the library call) and, for G3 and G4,
+    ``transpose``: the transpose of the table that the kernel's time
+    includes, alone. Returns the record of this use for the kernels line."""
     gather_only = kernel_name == "lane_gather"
     max_err, out_bytes = hold_against_plain(f"{kernel_name} at {at}", kernel, plain, bf16,
                                             exact=gather_only)
-    ms, plain_ms, third_ms = paired_median_ms(kernel, plain, third)
+    fns = (kernel, plain, third) + ((transpose,) if transpose else ())
+    ms, plain_ms, third_ms, *transpose_ms = paired_median_ms(*fns)
+    transpose_ms = transpose_ms[0] if transpose_ms else None
     nbytes, _, bound_ms, by = launch_bound(tensors, out_bytes, ops,
                                            torch.bfloat16 if bf16 else torch.float32)
     beside = "index_select" if gather_only else "A1"
-    print(f"{kernel_name} at {at}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {beside} "
+    of_it = "" if transpose is None else f" (of it the transpose alone {transpose_ms:.4f} ms)"
+    print(f"{kernel_name} at {at}: kernel {ms:.4f} ms{of_it}, plain {plain_ms:.4f} ms, {beside} "
           f"{third_ms:.4f} ms (medians of 5, run in turns), bound {bound_ms:.5f} ms by {by} "
           f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP on found taps), max err {max_err:.3e}")
     return {"at": at, "ms": ms, "plain_ms": plain_ms, "a1_ms": None if gather_only else third_ms,
             "library_ms": third_ms if gather_only else None, "bound_ms": bound_ms,
-            "bound_by": by, "max_abs_err": max_err}
+            "bound_by": by, "max_abs_err": max_err, "transpose_ms": transpose_ms}
+
+
+def lane_transpose(kernel_name, table_t):
+    """G3's or G4's transpose of ``table_t`` alone, as a function of no
+    arguments (None for the other probe kernels)."""
+    if not kernel_name.startswith("lane_gather"):
+        return None
+    return lambda: gp.lane_rows(table_t)
 
 
 def probes_on_own_operands(dev, uses):
@@ -911,9 +985,28 @@ def probes_on_own_operands(dev, uses):
         uses[probe.kernel].append(probe_use(
             probe.kernel, name, probes.kernel_call(ops), probes.plain_call(ops), third,
             (ops.table, ops.idx, ops.found, ops.w), flops,
-            bf16=probe.round_bf16 or ops.table.dtype == torch.bfloat16))
+            bf16=probe.round_bf16 or ops.table.dtype == torch.bfloat16,
+            transpose=lane_transpose(probe.kernel, ops.table)))
         del ops, third
         torch.cuda.empty_cache()
+
+
+def exact_f32_products_at_p5(dev):
+    """G1's and G3's exact-f32 products compute one function on a row-major
+    table: both on P5's f32 operands (no found), G3 on the table transposed,
+    held against the plain version and timed in turns with G3's transpose
+    alone (G3's time includes it)."""
+    ops = probes.make_operands("P5", dev)
+    table_t = ops.table.T.contiguous()
+
+    def g3():
+        return gp.lane_gather_gemm(table_t, ops.idx, ops.w)
+    max_err, _ = hold_against_plain("lane_gather_gemm at P5", g3, probes.plain_call(ops), False)
+    g1_ms, g3_ms, transpose_ms = paired_median_ms(probes.kernel_call(ops), g3,
+                                                  lambda: gp.lane_rows(table_t))
+    print(f"exact-f32 products at P5 (48000 x 27 x 32 -> 32, no found): G1 {g1_ms:.4f} ms, "
+          f"G3 {g3_ms:.4f} ms (of it the transpose alone {transpose_ms:.4f} ms; medians of 5, "
+          f"run in turns), G3 max err {max_err:.3e}", flush=True)
 
 
 def probes_on_layer_shapes(convs, uses):
@@ -944,11 +1037,12 @@ def probes_on_layer_shapes(convs, uses):
         uses["lane_gather_gemm"].append(probe_use(
             "lane_gather_gemm", at, lambda: gp.lane_gather_gemm(t_t, i, w, f),
             lambda: gp.lane_gather_gemm_reference(t_t, i, w, f), a1_f32, (t, i, f, w), flops,
-            True))
+            True, lane_transpose("lane_gather_gemm", t_t)))
         uses["lane_gather"].append(probe_use(
             "lane_gather", at, lambda: gp.lane_gather(t_t, i, PROBE_TILE),
             lambda: gp.lane_gather_reference(t_t, i, PROBE_TILE),
-            lambda: torch.index_select(t_t, 1, flat), (t_t, i), 0.0, True))
+            lambda: torch.index_select(t_t, 1, flat), (t_t, i), 0.0, True,
+            lane_transpose("lane_gather", t_t)))
     if len(seen) != 9:
         raise AssertionError(f"{len(seen)} layer shapes among the recorded convs, want 9")
     # kernel A1 against G1 (the flat formulation) and G2, timed in the same turns
@@ -956,20 +1050,27 @@ def probes_on_layer_shapes(convs, uses):
     for _, table, idx, _, w in convs:
         key = (idx.shape[1], idx.shape[2], table.shape[-1], w.shape[-1])
         counts[key] = counts.get(key, 0) + 1
-    for label, kernel in (("G1", "gather_gemm_flat"), ("G2", "gather_gemm_per_tap")):
-        on_layers = uses[kernel][-9:]
-        sums = [sum(u[k] * n for u, n in zip(on_layers, counts.values())) for k in ("a1_ms", "ms")]
-        ahead = [f"{u['at'].split(' found')[0]} ({u['ms']:.4f} against {u['a1_ms']:.4f} ms)"
-                 for u in on_layers if u["a1_ms"] > u["ms"]]
-        print(f"A1 against {label} over the {sum(counts.values())} convs of a forward (f32 "
-              f"output, batch 1): A1 {sums[0]:.4f} ms, {label} {sums[1]:.4f} ms; {label} faster "
-              f"than A1 at: {ahead or 'no shape'}")
+    for labels in (("G1", "G3"), ("G2",)):
+        kernels = [{"G1": "gather_gemm_flat", "G2": "gather_gemm_per_tap",
+                    "G3": "lane_gather_gemm"}[label] for label in labels]
+        on_layers = [uses[kernel][-9:] for kernel in kernels]
+        a1_sum = sum(u["a1_ms"] * n for u, n in zip(on_layers[0], counts.values()))
+        sums = [sum(u["ms"] * n for u, n in zip(ul, counts.values())) for ul in on_layers]
+        ahead = [f"{label} faster than A1 at: "
+                 + str([f"{u['at'].split(' found')[0]} ({u['ms']:.4f} against {u['a1_ms']:.4f} "
+                        f"ms)" for u in ul if u["a1_ms"] > u["ms"]] or "no shape")
+                 for label, ul in zip(labels, on_layers)]
+        print(f"A1 against {' and '.join(labels)} over the {sum(counts.values())} convs of a "
+              f"forward (f32 output, batch 1): A1 {a1_sum:.4f} ms, "
+              + ", ".join(f"{label} {t:.4f} ms" for label, t in zip(labels, sums))
+              + "; " + "; ".join(ahead))
 
 
 def probe_phase(dev, convs):
     """Phase 4. Returns the kernels-line entries of G1-G4."""
     uses = {k: [] for k in PROBE_KERNELS}
     probes_on_own_operands(dev, uses)
+    exact_f32_products_at_p5(dev)
     probes_on_layer_shapes(convs, uses)
     # this slice's path: the probes' entry point, with the counts read around it
     wrappers = {k: getattr(gp, k) for k in PROBE_KERNELS}
@@ -1100,6 +1201,13 @@ def compare_tails(sparse_model, dense_model, batch):
 
 
 def main():
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
+    parser.add_argument("--determinism", type=int, metavar="RUNS",
+                        help="run only phase 11 (after the build), with RUNS runs of the step "
+                             "under the scope (at least 2)")
+    parser.add_argument("--no-cudnn", action="store_true",
+                        help="with --determinism: the scope turns cuDNN off instead")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
     card = card_line()
@@ -1111,9 +1219,13 @@ def main():
     secs = cuda_build.build(verbose=True)
     print(f"kernel build: {secs:.1f} s compiling {len(cuda_build.SOURCES)} sources (one nvcc "
           f"process each, side by side)", flush=True)
+    dev = torch.device("cuda")
+    if args.determinism:
+        step_determinism(dev, max(args.determinism, 2), cudnn=not args.no_cudnn)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        return
     kernel_resource_lines()
 
-    dev = torch.device("cuda")
     src = "cpd_tpu_torch/csrc/gather_gemm.cu"
     pts, valid = make_lidar_frame(np.random.default_rng(0), N_POINTS)
     batch = {"points": torch.from_numpy(pts)[None].to(dev),

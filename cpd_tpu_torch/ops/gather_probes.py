@@ -21,6 +21,11 @@ reduce to four kernels, each a design of its own:
 * G4 ``lane_gather`` (``csrc/lane_gather.cu``): the transposed gather alone.
   Replaces ``scripts/exp_r2i_lane_gather.py:96``.
 
+G3 and G4 start with one hand-written transpose (``csrc/lane_common.cuh``)
+of the ``(C, V)`` table into a row-major ``(V, C)`` scratch (``lane_rows``),
+then gather whole rows: bf16 G3 is G1's kernel on the scratch, f32 G3 an
+exact-f32 product of its own, G4 a gather with a channel-major write.
+
 Tables and rulebooks are unbatched here, as in the probes: table ``(V, Cin)``
 (``(C, V)`` for G3 and G4), idx and found ``(N, K)``. Every output is f32.
 Each wrapper launches its kernel for CUDA tensors and raises on anything the
@@ -46,9 +51,15 @@ _ARGTYPES = {
     "lane_gather_gemm": [_PTR] * 5 + [_INT] * 6 + [_PTR],
     "lane_gather": [_PTR] * 3 + [_INT] * 5 + [_PTR],
 }
+_TRANSPOSE_ARGTYPES = [_PTR] * 2 + [_INT] * 3 + [_PTR]
 # taps a rulebook may have: kernel G1 keeps a tile's (TM, K) rows in shared memory
 MAX_TAPS = 256
 G1_TILE_ROWS = (128, 64)
+# kernel G3's f32 product: output rows a block, flattened columns a step,
+# output rows a thread (``csrc/lane_gather_gemm.cu``)
+G3_TILE_ROWS, G3_DEPTH, G3_THREAD_ROWS = 128, 32, 8
+# kernel G4: positions a block, channels staged a pass (``csrc/lane_gather.cu``)
+G4_POSITIONS, G4_CHANNELS = 128, 64
 
 
 def g1_staged_itemsize(dtype, round_bf16: bool) -> int:
@@ -83,6 +94,48 @@ def g1_tile_rows(n: int, k: int, cout: int, itemsize: int) -> int:
         raise ValueError(f"no tile of kernel G1 fits K={k}, Cout={cout}")
     col_tiles = -(-cout // _padded(cout, (16, 32, 64, 128)))
     return next((tm for tm in fits if -(-n // tm) * col_tiles >= SMS), fits[-1])
+
+
+def g3_column_tile(cout: int) -> int:
+    """Output columns a block of G3's f32 product owns: Cout padded to 16,
+    32, 64 or 128 (column tiles of 128 above that)."""
+    return _padded(cout, (16, 32, 64, 128))
+
+
+def g3_threads(cout: int) -> int:
+    """Threads a block of G3's f32 product runs: one per 8 rows x 4 columns
+    of the tile (8 x 8 at 128 columns), so 64, 128, 256 or 256."""
+    nt = g3_column_tile(cout)
+    per_thread = G3_THREAD_ROWS * (8 if nt >= 128 else 4)
+    return G3_TILE_ROWS * nt // per_thread
+
+
+def g3_smem_bytes(k: int, cout: int) -> int:
+    """Dynamic shared memory of one block of G3's f32 product, as
+    ``csrc/lane_gather_gemm.cu`` lays it out: the (TM, K) slab of table rows,
+    then the stage buffers (TM gathered rows and the W slab, rows padded by
+    16 bytes)."""
+    nt = g3_column_tile(cout)
+    stage = (G3_TILE_ROWS * (G3_DEPTH + 4) + G3_DEPTH * (nt + 4)) * 4
+    return _round_up(G3_TILE_ROWS * k * 4, 16) + STAGES * stage
+
+
+def g4_grid(n: int, k: int, tile: int):
+    """G4's blocks: (tiles, runs of ``G4_POSITIONS`` positions of a tile)."""
+    return n // tile, -(-tile * k // G4_POSITIONS)
+
+
+def g4_smem_bytes() -> int:
+    """Shared memory of one block of G4: a pass of ``G4_CHANNELS`` channels x
+    ``G4_POSITIONS`` positions in f32, and the positions' table rows."""
+    return (G4_CHANNELS + 1) * G4_POSITIONS * 4
+
+
+def lane_scratch_shape(table_t):
+    """The shape of the row-major scratch that G3 and G4 transpose the
+    ``(C, V)`` table into (of the table's dtype): ``(V, C)``."""
+    c, v = table_t.shape
+    return v, c
 
 
 def _gathered(table, idx, found):
@@ -183,6 +236,59 @@ def lane_gather_reference(table_t, idx, tile: int):
     return g.reshape(c, tiles, tq).permute(1, 0, 2).contiguous()
 
 
+def lane_gather_gemm_tiled(table_t, idx, w_flat, found=None):
+    """Kernel G3's formulation in plain PyTorch (for tests; small sizes
+    only): the transpose (``lane_rows``), then on the row-major copy G1's
+    order of arithmetic for bf16 operands (``gather_gemm_flat_tiled``); for
+    f32 ones which rows are read and which are skipped, not the kernel's
+    order of arithmetic: per tile of ``G3_TILE_ROWS`` output rows the slab as
+    table rows or -1, a tile where no row finds a tap as zeros and nothing
+    else, otherwise the flattened operand (zero where a tap is unfound or its
+    idx outside the table) times W, ``G3_DEPTH`` columns at a time, in f32.
+    The kernel sums each output's ``K*C`` columns in order in one fused
+    accumulator, so it agrees with this to rounding (1e-4 of scale), not bit
+    for bit."""
+    rows = lane_rows(table_t)
+    if table_t.dtype == torch.bfloat16:
+        return gather_gemm_flat_tiled(rows, idx, found, w_flat)
+    (v, c), (n, k), cout = rows.shape, idx.shape, w_flat.shape[1]
+    ok = (idx >= 0) & (idx < v)
+    if found is not None:
+        ok = ok & found
+    w = w_flat.float()
+    out = torch.zeros((n, cout), dtype=torch.float32)
+    for n0 in range(0, n, G3_TILE_ROWS):
+        r = torch.where(ok[n0:n0 + G3_TILE_ROWS], idx[n0:n0 + G3_TILE_ROWS].long(), -1)
+        if not bool((r >= 0).any()):
+            continue  # the skip: zeros, no gather, no product
+        a = torch.where((r >= 0)[..., None], rows[r.clamp(min=0)], 0.0).reshape(r.shape[0], -1)
+        for q0 in range(0, k * c, G3_DEPTH):
+            out[n0:n0 + G3_TILE_ROWS] += a[:, q0:q0 + G3_DEPTH] @ w[q0:q0 + G3_DEPTH]
+    return out
+
+
+def lane_gather_tiled(table_t, idx, tile: int):
+    """Kernel G4's formulation in plain PyTorch (for tests; small sizes
+    only): the transpose (``lane_rows``), then per run of ``G4_POSITIONS``
+    positions of a tile the positions' table rows (-1 for an idx outside the
+    table), each position's whole row (zeros for -1), written channel-major,
+    ``G4_CHANNELS`` channels a pass."""
+    rows = lane_rows(table_t).float()
+    (v, c), k = rows.shape, idx.shape[1]
+    (tiles, runs), tq = g4_grid(idx.shape[0], k, tile), tile * k
+    flat = idx.reshape(-1).long()
+    out = torch.empty((tiles, c, tq), dtype=torch.float32)
+    for i in range(tiles):
+        for q0 in range(0, runs * G4_POSITIONS, G4_POSITIONS):
+            q1 = min(tq, q0 + G4_POSITIONS)
+            src = flat[i * tq + q0:i * tq + q1]
+            src = torch.where((src >= 0) & (src < v), src, -1)
+            got = torch.where((src >= 0)[:, None], rows[src.clamp(min=0)], 0.0)
+            for c0 in range(0, c, G4_CHANNELS):
+                out[i, c0:c0 + G4_CHANNELS, q0:q1] = got[:, c0:c0 + G4_CHANNELS].T
+    return out
+
+
 def _check_table(name, table, idx, found, cin_axis: int):
     if table.dim() != 2 or idx.dim() != 2:
         raise ValueError(f"want {name} 2-d and idx (N, K); got {tuple(table.shape)}, "
@@ -278,22 +384,50 @@ def gather_gemm_per_tap(table, idx, found, w):
 gather_gemm_per_tap.launches = 0
 
 
+def lane_rows(table_t):
+    """The row-major ``(V, C)`` copy of a transposed table that G3 and G4
+    start with. CUDA tensors: the hand-written transpose of
+    ``csrc/lane_common.cuh`` (exported by G4's library), launched on the
+    current stream into a scratch from ``torch.empty``; CPU tensors:
+    ``table_t.T.contiguous()``. Exact either way."""
+    if table_t.dim() != 2 or table_t.dtype not in DTYPE_CODES:
+        raise ValueError(f"want a 2-d float32 or bfloat16 table_t, got {table_t.dtype} "
+                         f"{tuple(table_t.shape)}")
+    if not on_cuda(_named(table_t=table_t)):
+        return table_t.T.contiguous()
+    fn = load("lane_gather", _TRANSPOSE_ARGTYPES, symbol="cpd_lane_gather_transpose")
+    c, v = table_t.shape
+    rows = torch.empty(lane_scratch_shape(table_t), dtype=table_t.dtype, device=table_t.device)
+    _launch("lane transpose", fn, table_t, table_t.data_ptr(), rows.data_ptr(), c, v,
+            DTYPE_CODES[table_t.dtype])
+    return rows
+
+
 def lane_gather_gemm(table_t, idx, w_flat, found=None):
     """out[n] = concat_k(table_t[:, idx[n, k]]) @ w_flat in f32, the table
     stored transposed (C, V); with ``found``, unfound taps contribute zero.
-    CUDA tensors run kernel G3; CPU tensors the plain version."""
+    CUDA tensors run kernel G3: the transpose (``lane_rows``), then on the
+    row-major scratch kernel G1's product for bf16 operands or G3's exact
+    f32 product for f32 ones; CPU tensors the plain version."""
     _check_table("table_t", table_t, idx, found, cin_axis=0)
     if w_flat.dim() != 2:
         raise ValueError(f"w_flat must be (K*C, Cout), got {tuple(w_flat.shape)}")
     _check_weights(table_t, idx, w_flat, table_t.shape[0])
     if not on_cuda(_named(table_t=table_t, idx=idx, found=found, w_flat=w_flat)):
         return lane_gather_gemm_reference(table_t, idx, w_flat, found)
-    fn = load("lane_gather_gemm", _ARGTYPES["lane_gather_gemm"])
     (c, v), (n, k), cout = table_t.shape, idx.shape, w_flat.shape[1]
+    rows = lane_rows(table_t)
     out = torch.empty((n, cout), dtype=torch.float32, device=table_t.device)
-    _launch("lane_gather_gemm", fn, table_t, table_t.data_ptr(), idx.data_ptr(),
-            None if found is None else found.data_ptr(), w_flat.data_ptr(), out.data_ptr(),
-            v, n, k, c, cout, DTYPE_CODES[table_t.dtype])
+    found_ptr = None if found is None else found.data_ptr()
+    if table_t.dtype == torch.bfloat16:
+        fn = load("gather_gemm_flat", _ARGTYPES["gather_gemm_flat"])
+        _launch("lane_gather_gemm (G1's product)", fn, table_t, rows.data_ptr(), idx.data_ptr(),
+                found_ptr, w_flat.data_ptr(), out.data_ptr(), v, n, k, c, cout,
+                DTYPE_CODES[torch.bfloat16], 0, g1_tile_rows(n, k, cout, 2))
+    else:
+        fn = load("lane_gather_gemm", _ARGTYPES["lane_gather_gemm"])
+        _launch("lane_gather_gemm", fn, table_t, rows.data_ptr(), idx.data_ptr(), found_ptr,
+                w_flat.data_ptr(), out.data_ptr(), v, n, k, c, cout, DTYPE_CODES[torch.float32])
     lane_gather_gemm.launches += 1
     return out
 
@@ -304,7 +438,8 @@ lane_gather_gemm.launches = 0
 def lane_gather(table_t, idx, tile: int):
     """out[i, c, q] = table_t[c, idx_flat[i * tile*K + q]] as (N // tile, C,
     tile*K) f32; rows past the last whole tile are not covered. CUDA tensors
-    run kernel G4; CPU tensors the plain version."""
+    run kernel G4 (the transpose, ``lane_rows``, then the gather of whole
+    rows); CPU tensors the plain version."""
     _check_table("table_t", table_t, idx, None, cin_axis=0)
     if tile <= 0:
         raise ValueError(f"tile must be positive, got {tile}")
@@ -312,8 +447,9 @@ def lane_gather(table_t, idx, tile: int):
         return lane_gather_reference(table_t, idx, tile)
     fn = load("lane_gather", _ARGTYPES["lane_gather"])
     (c, v), (n, k) = table_t.shape, idx.shape
+    rows = lane_rows(table_t)
     out = torch.empty((n // tile, c, tile * k), dtype=torch.float32, device=table_t.device)
-    _launch("lane_gather", fn, table_t, table_t.data_ptr(), idx.data_ptr(), out.data_ptr(),
+    _launch("lane_gather", fn, table_t, rows.data_ptr(), idx.data_ptr(), out.data_ptr(),
             v, c, n // tile, tile * k, DTYPE_CODES[table_t.dtype])
     lane_gather.launches += 1
     return out

@@ -9,10 +9,13 @@ all-reduce, synchronised batch norm) is not ported.
 
 ``init_state`` places the model with ``utils.device.place``: on the CUDA
 card unless the caller asks for another device; with no card and no such
-request it raises. The step runs where the state's model lives.
+request it raises. The step runs where the state's model lives, under
+``deterministic_cudnn``: one step from the same state gives the same bits
+twice on the card, as a JAX step does.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional
@@ -170,6 +173,22 @@ def init_state(model: nn.Module, opt_cfg: Dict, total_steps: int, device=None) -
     return TrainState(0, model, build_optimizer(model.parameters(), opt_cfg, total_steps))
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN with deterministic algorithms and no autotuning inside the
+    scope; the caller's two flags are put back on leaving it, also when the
+    scope raises. Other cuDNN settings (enabled, TF32) stay the caller's.
+    Without it a convolution's weight gradient may sum with atomics, in an
+    order that changes from run to run."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+
+
 def make_train_step():
     """-> ``train_step(state, batch, generator=None, sampling_uniforms=None)``
     returning ``(state, tb)``: one forward + loss + backward + update of
@@ -191,8 +210,9 @@ def make_train_step():
         buffers = list(model.buffers())
         saved = [b.clone() for b in buffers]
         optimizer.zero_grad(set_to_none=True)
-        loss, tb = model.loss_step(batch, sampling_uniforms, generator)
-        loss.backward()
+        with deterministic_cudnn():
+            loss, tb = model.loss_step(batch, sampling_uniforms, generator)
+            loss.backward()
         gnorm = optimizer.step()
         finite = bool(torch.isfinite(gnorm))
         if not finite:

@@ -436,6 +436,112 @@ def test_lane_gather_kernel_equals_plain(cuda, n, k, c, tile):
     assert gp.lane_gather.launches == launches + 3
 
 
+def _same_bits(a, b):
+    """Bit-equal, NaN included (``torch.equal`` calls NaN unequal to itself)."""
+    return a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                              b.reshape(-1).view(torch.uint8))
+
+
+def _unread_rows_nan(table, idx, found):
+    """The table with NaN in every row that no found tap with an idx inside
+    the table reads: a kernel that reads one of them shows it."""
+    v = table.shape[0]
+    ok = (idx >= 0) & (idx < v)
+    if found is not None:
+        ok = ok & found
+    read = torch.zeros(v, dtype=torch.bool, device=table.device)
+    read[idx[ok].long()] = True
+    return torch.where(read[:, None], table, float("nan"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,k,cin,cout", [(1000, 27, 5, 16), (300, 3, 16, 32), (777, 27, 64, 64),
+                                          (129, 27, 32, 128), (65, 27, 16, 200)])
+def test_lane_gather_gemm_kernel_traps(cuda, n, k, cin, cout, dtype):
+    """Kernel G3 after the transpose: junk idx under unfound taps and NaN in
+    every table row no found tap reads, idx outside the table, K = 3,
+    5-channel rows, ragged tiles, Cout 16 to 200: equal to the plain version
+    and to the CPU restatement within 1e-4 of the output's scale (f32: its
+    own exact product; bf16: G1's, which does not count a launch of its
+    own); ``table_t`` left as it was; the same bits twice."""
+    table, idx, found, w = _probe_operands(cuda, n, k, cin, cout, n + 4)
+    table = _unread_rows_nan(table, idx, found)
+    table_t, ww = table.T.contiguous().to(dtype), w.to(dtype)
+    before = table_t.clone()
+    launches, g1 = gp.lane_gather_gemm.launches, gp.gather_gemm_flat.launches
+    out = gp.lane_gather_gemm(table_t, idx, ww, found)
+    assert bool(torch.isfinite(out).all())
+    _close_to_plain(out, gp.lane_gather_gemm_reference(table_t, idx, ww, found), 1e-4)
+    tiled = gp.lane_gather_gemm_tiled(table_t.cpu(), idx.cpu(), ww.cpu(), found.cpu())
+    _close_to_plain(out.cpu(), tiled, 1e-4)
+    assert torch.equal(out, gp.lane_gather_gemm(table_t, idx, ww, found))
+    torch.cuda.synchronize()
+    assert _same_bits(table_t, before)
+    assert gp.lane_gather_gemm.launches == launches + 2
+    assert gp.gather_gemm_flat.launches == g1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,k,c,tile", [(1000, 27, 5, 256), (777, 27, 64, 64), (300, 3, 128, 7),
+                                        (300, 27, 72, 10), (256, 27, 16, 256)])
+def test_lane_gather_kernel_traps(cuda, n, k, c, tile, dtype):
+    """Kernel G4 after the transpose: NaN in every table row that no
+    gathered position reads, idx outside the table (zeros), ragged runs of
+    positions and tile lengths not a multiple of 4 (scalar stores), two
+    passes at 72 channels: bit-equal to the plain version and the CPU
+    restatement; ``table_t`` left as it was; the same bits twice."""
+    table, idx, _, _ = _probe_operands(cuda, n, k, c, 1, n + 5)
+    tiles = n // tile
+    covered = idx.reshape(-1)[:tiles * tile * k].reshape(-1, 1)
+    table = _unread_rows_nan(table, covered, None)
+    table_t = table.T.contiguous().to(dtype)
+    before = table_t.clone()
+    launches = gp.lane_gather.launches
+    out = gp.lane_gather(table_t, idx, tile)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, gp.lane_gather_reference(table_t, idx, tile))
+    assert torch.equal(out.cpu(), gp.lane_gather_tiled(table_t.cpu(), idx.cpu(), tile))
+    assert torch.equal(out, gp.lane_gather(table_t, idx, tile))
+    torch.cuda.synchronize()
+    assert _same_bits(table_t, before)
+    assert gp.lane_gather.launches == launches + 2
+
+
+@pytest.mark.cuda
+def test_lane_transpose_is_exact(cuda):
+    """The transpose that G3 and G4 start with: the row-major copy equals
+    ``table_t.T`` bit for bit, f32 and bf16, at widths below, at and above
+    its tile of 32 and at the probes' 64 x 48,000."""
+    rng = np.random.default_rng(9)
+    for c, v in [(5, 37), (32, 64), (33, 1000), (64, 48_000), (128, 24_001)]:
+        table_t = torch.from_numpy(rng.normal(size=(c, v)).astype(np.float32)).to(cuda)
+        for t in (table_t, table_t.bfloat16()):
+            rows = gp.lane_rows(t)
+            assert rows.shape == (v, c) and rows.dtype == t.dtype
+            assert torch.equal(rows, t.T)
+
+
+@pytest.mark.cuda
+def test_lane_gather_gemm_kernel_asks_for_the_shared_memory_the_wrapper_counts(cuda):
+    """``g3_smem_bytes`` equals what the built f32 product computes for a
+    launch, and its bf16 operands never reach it (the entry point refuses
+    them: they go to G1)."""
+    import ctypes
+    from cpd_tpu_torch.ops.cuda_build import load
+    smem = load("lane_gather_gemm", [ctypes.c_int] * 2, symbol="cpd_lane_gather_gemm_smem")
+    for k, cout in [(27, 16), (27, 32), (27, 64), (27, 128), (3, 128), (27, 200), (256, 7)]:
+        assert smem(k, cout) == gp.g3_smem_bytes(k, cout)
+    table, idx, found, w = _probe_operands(cuda, 64, 3, 8, 16, 0)
+    fn = load("lane_gather_gemm", gp._ARGTYPES["lane_gather_gemm"])
+    out = torch.empty(64, 16, device=cuda)
+    tb, wb = table.bfloat16(), w.bfloat16()
+    err = fn(tb.data_ptr(), idx.data_ptr(), found.data_ptr(), wb.data_ptr(), out.data_ptr(),
+             table.shape[0], 64, 3, 8, 16, 1, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
 @pytest.mark.cuda
 def test_probe_kernels_reject_non_contiguous(cuda):
     table, idx, found, w = _probe_operands(cuda, 64, 3, 8, 16, 0)

@@ -132,6 +132,56 @@ def test_nonfinite_guard_skips_the_update():
     assert math.isfinite(float(tb["grad_norm"])) and float(tb["grad_norm"]) > 0
 
 
+class _FlagRecorder(_ToyDetector):
+    """The toy detector, recording cuDNN's two flags where its loss is taken
+    and where the backward reaches the loss; ``batch["fail"]`` makes it
+    raise."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def _flags(self, where):
+        cudnn = torch.backends.cudnn
+        self.seen.append((where, cudnn.benchmark, cudnn.deterministic))
+
+    def loss_step(self, batch, sampling_uniforms=None, generator=None):
+        self._flags("forward")
+        if batch.get("fail"):
+            raise RuntimeError("toy failure")
+        loss, tb = super().loss_step(batch, sampling_uniforms, generator)
+        loss.register_hook(lambda grad: self._flags("backward"))
+        return loss, tb
+
+
+def test_train_step_runs_under_deterministic_cudnn_and_restores_the_callers_flags():
+    """On the card a step from the same state gives the same bits twice only
+    with cuDNN's deterministic algorithms (a convolution's weight gradient
+    may otherwise sum with atomics): the step's forward and backward see
+    benchmark off and deterministic on, and the caller's flags come back
+    after the step, also when the step raises."""
+    cudnn = torch.backends.cudnn
+    model = _FlagRecorder()
+    state = trainer.init_state(model, {"LR": 0.01}, 10, device="cpu")
+    step = trainer.make_train_step()
+    batch = {"x": torch.randn(6, 2, generator=torch.Generator().manual_seed(0)),
+             "valid": torch.tensor([True] * 6), "poison": torch.tensor(0.0)}
+    saved = cudnn.benchmark, cudnn.deterministic
+    try:
+        for flags in ((True, False), (False, False), (True, True)):
+            cudnn.benchmark, cudnn.deterministic = flags
+            model.seen.clear()
+            state, tb = step(state, batch)
+            assert model.seen == [("forward", False, True), ("backward", False, True)]
+            assert (cudnn.benchmark, cudnn.deterministic) == flags
+            with pytest.raises(RuntimeError, match="toy failure"):
+                step(state, dict(batch, fail=True))
+            assert (cudnn.benchmark, cudnn.deterministic) == flags
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    assert float(tb["skipped_nonfinite"]) == 0.0 and state.step == 3
+
+
 def test_trainer_entry_points_need_a_card_or_an_explicit_cpu():
     if torch.cuda.is_available():
         assert trainer.resolve_device().type == "cuda"
