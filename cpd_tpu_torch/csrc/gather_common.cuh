@@ -1,7 +1,8 @@
-// Device helpers shared by kernels A1 (gather_gemm.cu) and A2
-// (gather_gemm_dw.cu): asynchronous 16-byte copies into shared memory,
+// Device helpers shared by kernels A1 (gather_gemm.cu), A2
+// (gather_gemm_dw.cu), G1 (gather_gemm_flat.cu) and G2
+// (gather_gemm_per_tap.cu): asynchronous 16-byte copies into shared memory,
 // ldmatrix / mma.sync wrappers for bf16 tensor-core products, and the
-// rulebook scan that both kernels run once per block.
+// rulebook scan that A1 and A2 run once per block.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -30,10 +31,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // 16 bytes global -> shared without passing through registers; src_bytes = 0
-// reads nothing and fills the 16 bytes with zeros.
+// reads nothing and fills the 16 bytes with zeros. The _at forms take a shared
+// address that the caller computed once (smem_addr).
+__device__ __forceinline__ void cp_async16_at(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
+  cp_async16_at(smem_addr(dst), src, src_bytes);
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // wait until all but the newest STAGES - 2 of this thread's copy groups have landed
@@ -55,15 +60,21 @@ __device__ __forceinline__ void stage_piece(T* dst, const T* src, int valid, boo
   }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+__device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(addr));
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+__device__ __forceinline__ void ldmatrix_x4_trans_at(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  ldmatrix_x4_at(r, smem_addr(p));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  ldmatrix_x4_trans_at(r, smem_addr(p));
 }
 
 // d (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, column-major)

@@ -268,9 +268,11 @@ def dw_scratch_shape(rows: int, k: int, cin: int, cout: int, chunk_rows: int):
 def kernel_smem_bytes(kernel: str, *sizes) -> int:
     """What the built library itself says a launch asks for, in bytes of
     dynamic shared memory: ``("gather_gemm", K, Cin, Cout, dtype code,
-    tile_rows)`` or ``("gather_gemm_dw", Cin, Cout, chunk_rows, taps, dtype
-    code)``. Needs the built library (a card's machine)."""
-    return load(kernel, [ctypes.c_int] * 5, symbol=f"cpd_{kernel}_smem")(*sizes)
+    tile_rows)``, ``("gather_gemm_dw", Cin, Cout, chunk_rows, taps, dtype
+    code)``, ``("gather_gemm_flat", K, Cout, dtype code, round_bf16,
+    tile_rows)`` or ``("gather_gemm_per_tap", K, Cin, Cout, warps)``. Needs
+    the built library (a card's machine)."""
+    return load(kernel, [ctypes.c_int] * len(sizes), symbol=f"cpd_{kernel}_smem")(*sizes)
 
 
 def _hits(idx, found, v):

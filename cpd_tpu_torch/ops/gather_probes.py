@@ -13,7 +13,10 @@ reduce to four kernels, each a design of its own:
   ``scripts/exp_gather_variants.py:107``, ``scripts/exp_r2_lowering.py:213``
   and ``scripts/exp_r2h_gather2.py:99``.
 * G2 ``gather_gemm_per_tap`` (``csrc/gather_gemm_per_tap.cu``): one product
-  per tap over the rows that found it, summed in tap order. Replaces
+  per tap over the rows that found it, summed in tap order, with all K taps
+  of W resident in a block's shared memory and one warp per 32 output rows.
+  It takes bf16 operands whose W fits (``g2_route``); f32 operands and wider
+  W go to kernel A1, which computes the same function at batch 1. Replaces
   ``scripts/exp_tal_gather.py:86``.
 * G3 ``lane_gather_gemm`` (``csrc/lane_gather_gemm.cu``): the same product
   from a table stored transposed ``(C, V)``. Replaces
@@ -42,12 +45,13 @@ import functools
 import torch
 
 from .cuda_build import DTYPE_CODES, load, on_cuda
-from .gather_gemm import MAX_SMEM, SMS, STAGES, _padded, _round_up
+from .gather_gemm import (_ARGTYPES as _A1_ARGTYPES, MAX_SMEM, SMS, STAGES, _padded,
+                          _round_up, a1_tile_rows, gather_gemm_tiled)
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "gather_gemm_flat": [_PTR] * 5 + [_INT] * 8 + [_PTR],
-    "gather_gemm_per_tap": [_PTR] * 5 + [_INT] * 6 + [_PTR],
+    "gather_gemm_per_tap": [_PTR] * 5 + [_INT] * 7 + [_PTR],
     "lane_gather_gemm": [_PTR] * 5 + [_INT] * 6 + [_PTR],
     "lane_gather": [_PTR] * 3 + [_INT] * 5 + [_PTR],
 }
@@ -60,6 +64,14 @@ G1_TILE_ROWS = (128, 64)
 G3_TILE_ROWS, G3_DEPTH, G3_THREAD_ROWS = 128, 32, 8
 # kernel G4: positions a block, channels staged a pass (``csrc/lane_gather.cu``)
 G4_POSITIONS, G4_CHANNELS = 128, 64
+# kernel G2 (``csrc/gather_gemm_per_tap.cu``): output rows a warp owns; the
+# stages of a warp's ring; the most warps a block runs by padded Cout (the
+# registers of the accumulator); the fewest warps a block must keep beside W
+# for the kernel to take a shape (else A1 does)
+G2_TILE_ROWS = 32
+G2_DEPTH = 2
+G2_MAX_WARPS = {16: 32, 32: 24, 64: 16, 128: 8}
+G2_MIN_WARPS = 4
 
 
 def g1_staged_itemsize(dtype, round_bf16: bool) -> int:
@@ -129,6 +141,59 @@ def g4_smem_bytes() -> int:
     """Shared memory of one block of G4: a pass of ``G4_CHANNELS`` channels x
     ``G4_POSITIONS`` positions in f32, and the positions' table rows."""
     return (G4_CHANNELS + 1) * G4_POSITIONS * 4
+
+
+def g2_widths(cin: int, cout: int):
+    """(Cin, Cout) padded to the kernel's instance widths 16, 32, 64 or 128."""
+    widths = (16, 32, 64, 128)
+    return _padded(cin, widths), _padded(cout, widths)
+
+
+def g2_smem_bytes(k: int, cin: int, cout: int, warps: int) -> int:
+    """Dynamic shared memory of one block of G2, as
+    ``csrc/gather_gemm_per_tap.cu`` lays it out: all K taps of W in bf16
+    (rows padded by 16 bytes), then per warp its rulebook slab (32 x K ints)
+    and its ring of ``G2_DEPTH`` stages (32 rows of Cin padded, plus 16
+    bytes; at least the slab's 32 x K found bytes, which land there first)."""
+    kp, nt = g2_widths(cin, cout)
+    w = _round_up(k * kp * (nt + 8) * 2, 16)
+    ring = max(G2_DEPTH * G2_TILE_ROWS * (kp + 8) * 2, _round_up(G2_TILE_ROWS * k, 16))
+    return w + warps * (_round_up(G2_TILE_ROWS * k * 4, 16) + ring)
+
+
+def g2_max_warps(k: int, cin: int, cout: int) -> int:
+    """The most warps a block of G2 can run: the registers' cap for the
+    width (``G2_MAX_WARPS``) or as many as fit beside W in shared memory; 0
+    for Cin or Cout above 128."""
+    if cin > 128 or cout > 128:
+        return 0
+    cap = G2_MAX_WARPS[g2_widths(cin, cout)[1]]
+    return next((w for w in range(cap, 0, -1)
+                 if g2_smem_bytes(k, cin, cout, w) <= MAX_SMEM), 0)
+
+
+def g2_route(k: int, cin: int, cout: int, dtype) -> str:
+    """Which kernel ``gather_gemm_per_tap`` launches: "own" (G2's kernel)
+    for bf16 operands whose W leaves room beside it for ``G2_MIN_WARPS``
+    warps, "A1" for f32 operands and wider W."""
+    own = dtype == torch.bfloat16 and g2_max_warps(k, cin, cout) >= G2_MIN_WARPS
+    return "own" if own else "A1"
+
+
+@functools.lru_cache(maxsize=None)
+def g2_warps(n: int, k: int, cin: int, cout: int) -> int:
+    """Warps a block of G2's own kernel runs for ``n`` output rows. Each
+    warp runs its tiles in rounds, and a last round that few warps run costs
+    about as long as a full one (one warp's taps, one after the other), so
+    the warps are as few as keep the rounds at their least (``SMS`` blocks,
+    one an SM)."""
+    rounds = max(1, -(-g2_warp_tiles(n) // (SMS * g2_max_warps(k, cin, cout))))
+    return -(-g2_warp_tiles(n) // (SMS * rounds))
+
+
+def g2_warp_tiles(n: int) -> int:
+    """Tiles of ``G2_TILE_ROWS`` output rows, one warp's work each."""
+    return -(-n // G2_TILE_ROWS)
 
 
 def lane_scratch_shape(table_t):
@@ -203,6 +268,37 @@ def gather_gemm_per_tap_reference(table, idx, found, w):
     out = torch.zeros((idx.shape[0], w.shape[-1]), dtype=torch.float32, device=table.device)
     for k in range(idx.shape[-1]):
         out = out + _gathered(table, idx[:, k:k + 1], found[:, k:k + 1])[:, 0] @ w[k].float()
+    return out
+
+
+def gather_gemm_per_tap_tiled(table, idx, found, w):
+    """Kernel G2's order of arithmetic in plain PyTorch (for tests; small
+    sizes only). Where G2's own kernel runs (``g2_route``): per warp tile of
+    ``G2_TILE_ROWS`` output rows an f32 accumulator; per tap in tap order the
+    tile's hit rows (found, idx inside the table) staged at their own rows,
+    every other row zero; each half of 16 rows that has a hit multiplied,
+    16 input channels at a time, in bf16 summed in f32, and added into the
+    accumulator; a half without a hit, and a tap without one, untouched (a
+    NaN in W does not reach them). Where A1 runs: A1's order
+    (``gather_gemm_tiled``) at batch 1."""
+    (v, cin), (n, k), cout = table.shape, idx.shape, w.shape[-1]
+    if g2_route(k, cin, cout, table.dtype) == "A1":
+        return gather_gemm_tiled(table[None], idx[None], found[None],
+                                 w.reshape(k * cin, cout))[0]
+    ok = found & (idx >= 0) & (idx < v)
+    out = torch.zeros((n, cout), dtype=torch.float32)
+    for n0 in range(0, n, G2_TILE_ROWS):
+        acc = out[n0:n0 + G2_TILE_ROWS]
+        for kk in range(k):
+            hit = ok[n0:n0 + G2_TILE_ROWS, kk]
+            rows = torch.where(hit, idx[n0:n0 + G2_TILE_ROWS, kk].long(), 0)
+            a = torch.where(hit[:, None], table[rows], 0)
+            for h0 in range(0, len(hit), 16):
+                if not bool(hit[h0:h0 + 16].any()):
+                    continue  # the half is neither staged nor multiplied
+                for c0 in range(0, cin, 16):
+                    acc[h0:h0 + 16] += (a[h0:h0 + 16, c0:c0 + 16].float()
+                                        @ w[kk, c0:c0 + 16].float())
     return out
 
 
@@ -358,10 +454,14 @@ def gather_gemm_flat(table, idx, found, w_flat, round_bf16=False, *, tile_rows=N
 gather_gemm_flat.launches = 0
 
 
-def gather_gemm_per_tap(table, idx, found, w):
+def gather_gemm_per_tap(table, idx, found, w, *, warps=None):
     """out[n] = sum_k (found[n, k] ? table[idx[n, k]] @ w[k] : 0), the taps
-    summed in order in f32; w is (K, Cin, Cout). CUDA tensors run kernel G2;
-    CPU tensors the plain version."""
+    summed in order in f32; w is (K, Cin, Cout). CUDA tensors run kernel G2:
+    its own kernel for bf16 operands whose W fits its shared memory, kernel
+    A1's entry point at batch 1 for f32 operands and wider W (``g2_route``;
+    either launch counts here, not in ``gather_gemm.launches``). CPU tensors
+    compute the plain version. ``warps`` overrides the warps a block of the
+    own kernel runs (``g2_warps``); the result's bits do not depend on it."""
     _check_table("table", table, idx, found, cin_axis=1)
     if found is None:
         raise TypeError("gather_gemm_per_tap needs found")
@@ -371,12 +471,18 @@ def gather_gemm_per_tap(table, idx, found, w):
     _check_weights(table, idx, w, table.shape[1])
     if not on_cuda(_named(table=table, idx=idx, found=found, w=w)):
         return gather_gemm_per_tap_reference(table, idx, found, w)
-    fn = load("gather_gemm_per_tap", _ARGTYPES["gather_gemm_per_tap"])
     (v, cin), (n, k), cout = table.shape, idx.shape, w.shape[2]
     out = torch.empty((n, cout), dtype=torch.float32, device=table.device)
-    _launch("gather_gemm_per_tap", fn, table, table.data_ptr(), idx.data_ptr(),
-            found.data_ptr(), w.data_ptr(), out.data_ptr(), v, n, k, cin, cout,
-            DTYPE_CODES[table.dtype])
+    args = (table.data_ptr(), idx.data_ptr(), found.data_ptr(), w.data_ptr(), out.data_ptr())
+    if g2_route(k, cin, cout, table.dtype) == "own":
+        fn = load("gather_gemm_per_tap", _ARGTYPES["gather_gemm_per_tap"])
+        _launch("gather_gemm_per_tap", fn, table, *args, v, n, k, cin, cout,
+                DTYPE_CODES[torch.bfloat16], warps or g2_warps(n, k, cin, cout))
+    else:  # w (K, Cin, Cout) is A1's (K*Cin, Cout) in the same memory
+        fn = load("gather_gemm", _A1_ARGTYPES["gather_gemm"])
+        _launch("gather_gemm_per_tap (A1's kernel)", fn, table, *args, 1, v, n, k, cin, cout,
+                DTYPE_CODES[table.dtype], DTYPE_CODES[torch.float32],
+                a1_tile_rows(1, n, k, cin, cout, table.element_size()))
     gather_gemm_per_tap.launches += 1
     return out
 

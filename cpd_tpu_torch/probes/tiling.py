@@ -1,4 +1,4 @@
-"""Sweep of the host-side choices of kernels A1 and A2 on one CUDA card.
+"""Sweep of the host-side choices of kernels A1, A2 and G2 on one CUDA card.
 
     python -m cpd_tpu_torch.probes.tiling [--batch 2] [--reps 7] [--live 0.6]
 
@@ -9,9 +9,11 @@ share, all of it within the first ``--live`` share of the rows: a stage's
 rulebook is padded to its cap, and on a 200k-point frame 52 to 67% of the
 rows are live), and times, in bf16, kernel A1 at every tile size and kernel
 A2 at a list of (chunk rows, taps) plans, marking the wrapper's own choice
-(``a1_tile_rows``, ``a2_plan``). Times are device times: each reading queues
-a spin kernel first, so that the host has enqueued the launch before the
-card reaches it.
+(``a1_tile_rows``, ``a2_plan``). Where G2's own kernel takes the shape
+(``g2_route``), it times G2 on the first sample's rulebook at a range of
+warps a block, marking ``g2_warps``; last G2 the same way at probe P3's
+operands. Times are device times: each reading queues a spin kernel first,
+so that the host has enqueued the launch before the card reaches it.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 from ..ops import gather_gemm as gg
+from ..ops import gather_probes as gp
+from . import gather as probes
 
 # rows, taps, cin, cout, found share: the 9 forward shapes of a bench frame,
 # then the wide -> narrow shapes that the strided convs' dX adds
@@ -57,6 +61,19 @@ def synthetic_rulebook(rng, b, n, k, v, share, live, device):
     found = rng.random((b, n, k)) < share / live
     found[:, int(live * n):] = False
     return torch.from_numpy(idx).to(device), torch.from_numpy(found).to(device)
+
+
+def g2_line(label, table, idx, found, w, reps):
+    """G2's own kernel at a range of warps a block (``g2_warps``'s choice
+    marked), on unbatched bf16 operands."""
+    n, (k, cin, cout) = idx.shape[0], w.shape
+    most, chosen = gp.g2_max_warps(k, cin, cout), gp.g2_warps(n, k, cin, cout)
+    counts = sorted({c for c in (4, 8, 12, 16, 20, 24, 28, 32, chosen - 2, chosen + 2, chosen, most)
+                     if 1 <= c <= most})
+    cells = [f"{c}{'*' if c == chosen else ''}: "
+             f"{device_ms(lambda: gp.gather_gemm_per_tap(table, idx, found, w, warps=c), reps):.4f}"
+             for c in counts]
+    print(f"G2 {label}: ms by warps a block " + ", ".join(cells))
 
 
 def main(argv=None):
@@ -101,8 +118,13 @@ def main(argv=None):
             ms = device_ms(lambda: gg.gather_gemm_dw(table, idx, found, g, plan=plan), args.reps)
             cells.append(f"{plan}{'*' if plan == chosen else ''}: {ms:.4f}")
         print(f"A2 {n} x {k} x {cin} -> {cout}: ms by (chunk rows, taps) " + ", ".join(cells))
+        if gp.g2_route(k, cin, cout, torch.bfloat16) == "own":
+            g2_line(f"{n} x {k} x {cin} -> {cout} (found {share})", table[0], idx[0], found[0],
+                    w.reshape(k, cin, cout), args.reps)
         del idx, found, table, w, g
         torch.cuda.empty_cache()
+    ops = probes.make_operands("P3", dev)
+    g2_line("P3", ops.table, ops.idx, ops.found, ops.w, args.reps)
 
 
 if __name__ == "__main__":

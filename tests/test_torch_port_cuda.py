@@ -377,8 +377,9 @@ def test_gather_gemm_flat_kernel_asks_for_the_shared_memory_the_wrapper_counts(c
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k,cin,cout", PROBE_SHAPES)
 def test_gather_gemm_per_tap_kernel_matches_plain(cuda, n, k, cin, cout):
-    """Kernel G2 (rows compacted per tap) against its plain version, f32 and
-    bf16 operands, 1e-4 of the output's scale; the same bits twice."""
+    """Kernel G2 (A1's entry point for f32 operands and Cout 200, its own
+    kernel for bf16 up to Cout 128) against its plain version, f32 and bf16
+    operands, 1e-4 of the output's scale; the same bits twice."""
     table, idx, found, w = _probe_operands(cuda, n, k, cin, cout, n + 1)
     w = w.reshape(k, cin, cout)
     launches = gp.gather_gemm_per_tap.launches
@@ -390,6 +391,85 @@ def test_gather_gemm_per_tap_kernel_matches_plain(cuda, n, k, cin, cout):
     _close_to_plain(out, gp.gather_gemm_per_tap_reference(tb, idx, found, wb), 1e-4)
     torch.cuda.synchronize()
     assert gp.gather_gemm_per_tap.launches == launches + 3
+
+
+def _g2_edge_k(cin, cout):
+    """The largest K at which G2's own kernel takes bf16 cin -> cout."""
+    return max(k for k in range(1, 64) if gp.g2_route(k, cin, cout, torch.bfloat16) == "own")
+
+
+# (n, k, cin, cout): P3's widths, 5-channel rows (scalar loads), K = 3, ragged
+# last tiles, Cin past one MMA depth, Cout not a multiple of 4 (scalar
+# stores), the widest W of K = 3, 32 -> 64, and 64 -> 64 just inside and
+# just outside the shared-memory budget
+G2_TRAP_SHAPES = [(2049, 27, 16, 16), (1000, 27, 5, 16), (131, 3, 16, 32), (97, 27, 48, 16),
+                  (65, 27, 12, 7), (300, 3, 128, 128), (777, 27, 32, 64),
+                  (333, "edge", 64, 64), (333, "past edge", 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,k,cin,cout", G2_TRAP_SHAPES)
+def test_gather_gemm_per_tap_routes_and_traps(cuda, n, k, cin, cout, dtype):
+    """Kernel G2 on both routes (its own kernel for bf16 W that fits, A1's
+    entry point for f32 and wider W): junk idx under unfound taps, NaN in
+    every table row no found tap reads, idx outside the table, rows 32-95
+    finding nothing; equal to the plain version and to the CPU restatement
+    within rtol 1e-4 + 1e-4 of the output's scale, the same bits twice (and
+    at one warp a block), one launch counted per call by G2 and none by A1."""
+    if isinstance(k, str):
+        k = _g2_edge_k(cin, cout) + (k == "past edge")
+    table, idx, found, w = _probe_operands(cuda, n, k, cin, cout, n + k + cin)
+    found[32:96] = False
+    idx = torch.where(found, idx, 10**8).to(torch.int32)
+    table = _unread_rows_nan(table, idx, found)
+    t, ww = table.to(dtype), w.reshape(k, cin, cout).to(dtype)
+    route = gp.g2_route(k, cin, cout, dtype)
+    assert route == ("own" if dtype == torch.bfloat16 and k != _g2_edge_k(cin, cout) + 1
+                     else "A1")
+    launches, a1 = gp.gather_gemm_per_tap.launches, gather_gemm.launches
+    out = gp.gather_gemm_per_tap(t, idx, found, ww)
+    again = gp.gather_gemm_per_tap(t, idx, found, ww)
+    torch.cuda.synchronize()
+    assert (gp.gather_gemm_per_tap.launches, gather_gemm.launches) == (launches + 2, a1)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, again)
+    if route == "own":  # a tile's sum does not depend on how many warps share the tiles
+        assert torch.equal(out, gp.gather_gemm_per_tap(t, idx, found, ww, warps=1))
+    assert torch.equal(out[32:96], torch.zeros_like(out[32:96]))
+    ref = gp.gather_gemm_per_tap_reference(t, idx, found, ww)
+    tiled = gp.gather_gemm_per_tap_tiled(t.cpu(), idx.cpu(), found.cpu(), ww.cpu())
+    for want in (ref.cpu(), tiled):
+        scale = float(want.abs().max())
+        assert float(((out.cpu() - want).abs() - 1e-4 * want.abs()).max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_gather_gemm_per_tap_kernel_asks_for_the_shared_memory_the_wrapper_counts(cuda):
+    """``g2_smem_bytes`` (which sizes the warps of a block, tested on the CPU)
+    equals what the built kernel computes for a launch; the entry point
+    refuses f32 operands (they go to A1), no warps, more warps than its
+    width's cap."""
+    from cpd_tpu_torch.ops.cuda_build import load
+    for n, k, cin, cout in [(150_016, 27, 16, 16), (90_000, 27, 5, 16), (80_000, 27, 16, 32),
+                            (80_000, 27, 32, 32), (48_000, 27, 32, 64), (20_000, 3, 128, 128),
+                            (100, 4, 48, 7), (1000, _g2_edge_k(64, 64), 64, 64)]:
+        for warps in (gp.g2_warps(n, k, cin, cout), gp.g2_max_warps(k, cin, cout)):
+            assert (gg.kernel_smem_bytes("gather_gemm_per_tap", k, cin, cout, warps)
+                    == gp.g2_smem_bytes(k, cin, cout, warps))
+    table, idx, found, w = _probe_operands(cuda, 64, 3, 8, 16, 0)
+    fn = load("gather_gemm_per_tap", gp._ARGTYPES["gather_gemm_per_tap"])
+    out = torch.empty(64, 16, device=cuda)
+    tb, wb = table.bfloat16(), w.bfloat16()
+    stream = torch.cuda.current_stream().cuda_stream
+    for t, ww, code, warps in ((table, w, 0, 4), (tb, wb, 1, 0), (tb, wb, 1, 33)):
+        err = fn(t.data_ptr(), idx.data_ptr(), found.data_ptr(), ww.data_ptr(), out.data_ptr(),
+                 table.shape[0], 64, 3, 8, 16, code, warps, stream)
+        assert err != 0
+    out = gp.gather_gemm_per_tap(tb, idx, found, wb.reshape(3, 8, 16))  # the card is still usable
+    torch.cuda.synchronize()
+    _close_to_plain(out, gp.gather_gemm_per_tap_reference(tb, idx, found, wb.reshape(3, 8, 16)),
+                    1e-4)
 
 
 @pytest.mark.cuda
