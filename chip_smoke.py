@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --determinism RUNS [--no-cudnn]   # phase 11 alone
+    python3 chip_smoke.py --determinism RUNS [--no-cudnn]   # phase 12 alone
 
 Drives the port's paths at the bench configuration of the JAX package
 (bench.py: 3 classes, range +-75.2 x [-2, 4] m, voxels (0.1, 0.1, 0.15) m,
@@ -9,7 +9,9 @@ grid 1504 x 1504 x 41, voxel cap 90k, stage caps (80k, 48k, 24k, 20k), 200
 test RoIs) on 200k-point synthetic lidar frames, with weights drawn from a
 seed: ``cpd_tpu_torch.models.detector.VoxelRCNN.predict`` (batch 1, MM
 branch off) with the dense backbone tail, as bench.py runs it, and with the
-sparse tail; the training step of ``cpd_tpu_torch.parallel``
+sparse tail; the evaluation CLI ``cpd_tpu_torch.tools.test`` on the shipped
+voxel_rcnn_cproto_center.yaml (batch 4, 8 written frames); the training step
+of ``cpd_tpu_torch.parallel``
 (``VoxelRCNN.loss_step`` with ``mm=True``, batch 2, 64 label slots, backward,
 clip, adam_onecycle; sparse tail); and the gather-formulation probes of
 ``cpd_tpu_torch.probes.gather`` at the probe scripts' own sizes. Phases, each
@@ -58,22 +60,36 @@ raising on failure:
    scores within the bf16 tier;
 7. a small-input check: the same weights on the CPU (plain kernel versions)
    and on the card agree within the bf16 tier;
-8. the kernels of one training step on their real operands, recorded from a
+8. the evaluation CLI, ``cpd_tpu_torch.tools.test.main``, as a user runs it:
+   the shipped tools/cfgs/models/voxel_rcnn_cproto_center.yaml at full width
+   (``build_network``; MM weights present, off in eval), a checkpoint that
+   ``save_checkpoint`` wrote from seeded weights (it must load back into a
+   fresh model bit-equal), and a Waymo-layout sequence of 8 frames of 200k
+   points written to a temporary directory (gt boxes in its infos; the
+   pseudo-labels are drawn, their factory is not ported), read by the
+   port's WaymoUnsupervisedDataset and threaded loader at the yaml's eval
+   batch of 4. Before the CLI runs: the cap audit at batch 4 with the yaml's
+   caps, and A1 against its plain version on the 21 convs of one batch-4
+   forward. Then the CLI: 21 A1 launches a batch (42), one finite detection
+   record a frame, result.pkl written, the AP/APH and recall keys in its
+   result; its own frames/s beside ``predict`` alone on the same batches
+   (the difference is the data layer's host cost), and the phase's seconds;
+9. the kernels of one training step on their real operands, recorded from a
    forward + backward: A1 forward (35 convs), A1 as dX (33) and A2 (35)
    against their plain versions, f32 (1e-4 of the output's scale: A2 sums
    up to 180,000 rows in another order) and bf16; times per layer shape;
-9. training path, every step through ``make_train_step``: the launch counts
+10. training path, every step through ``make_train_step``: the launch counts
    of the first step (A1 35 forward + 33 dX, A2 35; the forward's share is
    read where that step's ``loss_step`` returns), a second warm-up, then 5
    timed steps (ms per step median/min/max, and the phases forward, backward,
    clip + update between CUDA events of those same steps), peak memory,
    finite losses with ``proto_loss`` among them, no skipped step, parameters
    of both branches moved, and a torch.profiler window of a step;
-10. a small training step on the CPU and on the card, same weights, proposals
+11. a small training step on the CPU and on the card, same weights, proposals
     and sampling uniforms: at f32 the losses agree to 1e-3 and the gradients
     to a cosine of 0.999; at bf16 (the main path's dtype), on a configuration
     whose BEV maps are 32 x 32 and 16 x 16, within a looser tier;
-11. step determinism, a gate: one training step (loss_step + backward under
+12. step determinism, a gate: one training step (loss_step + backward under
     ``deterministic_cudnn``, as ``make_train_step`` runs it) three times in one
     process from the same state, the third under
     ``torch.use_deterministic_algorithms``: every forward tensor and gradient
@@ -98,17 +114,26 @@ alone, where it is ``torch.index_select``'s time.
 """
 import argparse
 import json
+import logging
 import math
+import pickle
+import re
 import statistics
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from cpd_tpu_torch.config import ConfigDict, cfg_from_list, cfg_from_yaml_file
+from cpd_tpu_torch.datasets import build_dataloader
+from cpd_tpu_torch.datasets.registry import build_dataset
+from cpd_tpu_torch.models import build_network
 from cpd_tpu_torch.models.backbone3d import build_branch_rulebooks, stage_grids
 from cpd_tpu_torch.models.bev import height_compression
-from cpd_tpu_torch.models.detector import VoxelRCNN, keys_from_frame
+from cpd_tpu_torch.models.detector import VoxelRCNN, keys_from_frame, set_compute_dtype
 from cpd_tpu_torch.ops import cuda_build
 from cpd_tpu_torch.ops import gather_gemm as a1
 from cpd_tpu_torch.ops import gather_probes as gp
@@ -116,9 +141,12 @@ from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch.ops.voxelizer import voxelize_batch
 from cpd_tpu_torch.parallel import init_state, make_train_step
 from cpd_tpu_torch.probes import gather as probes
+from cpd_tpu_torch.tools import test as eval_cli
+from cpd_tpu_torch.tools.train import device_batch
+from cpd_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from cpd_tpu_torch.utils.device import place
 from cpd_tpu_torch.utils.synthetic import (make_lidar_frame, make_tiny_train_batch,
-                                           make_train_batch)
+                                           make_train_batch, write_waymo_sequence)
 from cpd_tpu_torch.utils.weights import seeded_state_dict
 
 BENCH = dict(
@@ -163,6 +191,11 @@ SPIN_CYCLES = 600_000  # about 0.3 ms of torch.cuda._sleep ahead of a timed call
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 OPT_CFG = {"OPTIMIZER": "adam_onecycle", "LR": 0.003, "WEIGHT_DECAY": 1e-5,
            "GRAD_NORM_CLIP": 32}
+# the eval-CLI phase: the shipped yaml at full width, its eval batch (4) and
+# a written sequence of 8 frames, every frame kept (the yaml keeps every 10th)
+EVAL_YAML = "tools/cfgs/models/voxel_rcnn_cproto_center.yaml"
+EVAL_FRAMES = 8
+EVAL_SEQ = "segment-0000"
 
 
 def card_line() -> str:
@@ -826,15 +859,6 @@ def step_determinism(dev, runs=2, cudnn=True):
     return differ
 
 
-def set_compute_dtype(model, dtype):
-    """Every module of the model that computes in a ``compute_dtype`` (sparse
-    convs, BEV and head convs, the RoI MLPs and towers) to ``dtype``."""
-    for m in model.modules():
-        if hasattr(m, "compute_dtype"):
-            m.compute_dtype = dtype
-    return model
-
-
 # gates of small_train_check per compute dtype: relative tb error (+ 1e-3 of
 # slack at f32, 1e-2 at bf16), the dense-head entries' own, and per loss the
 # least cosine and the widest norm ratio between the card's and the CPU's
@@ -1235,10 +1259,143 @@ def compare_tails(sparse_model, dense_model, batch):
         raise AssertionError(f"dense and sparse tail disagree in their final scores: {diff}")
 
 
+class LogLines(logging.Handler):
+    """Keeps the messages of the port's logger while attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def write_eval_sequence(root):
+    """8 frames of ``make_lidar_frame`` at 200k points in the processed Waymo
+    layout, with gt boxes in the infos and pseudo-labels drawn the same way:
+    the pseudo-label factory that writes <seq>_outline_C_PROTO.pkl is not
+    ported yet."""
+    frames = [make_lidar_frame(np.random.default_rng(i), N_POINTS)[0] for i in range(EVAL_FRAMES)]
+    write_waymo_sequence(root, EVAL_SEQ, frames, seed=0, n_boxes=8)
+
+
+def eval_cli_phase(dev, card):
+    """The evaluation entry point at full width: ``cpd_tpu_torch.tools.test.main``
+    on the shipped yaml, a checkpoint written by ``save_checkpoint`` and a
+    written Waymo sequence of 8 frames, batch 4. Gates: the checkpoint round
+    trip is bit-equal; the caps of the yaml hold at batch 4; A1 against its
+    plain version on the 21 convs of one batch-4 forward; 21 A1 launches a
+    batch in the CLI's run; one detection record a frame with finite boxes
+    and scores; result.pkl written; the result dict holds the AP and recall
+    keys. Returns the kernels-line entry of A1 on this path."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_eval_sequence(tmp)
+        sets = ["DATA_CONFIG.DATA_PATH", str(tmp), "DATA_CONFIG.SAMPLED_INTERVAL.test", "1"]
+        cfg = cfg_from_list(sets, cfg_from_yaml_file(EVAL_YAML, ConfigDict()))
+        batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+        n_batches = math.ceil(EVAL_FRAMES / batch_size)
+
+        model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+        model.load_state_dict(seeded_state_dict(model, 0), strict=True)
+        ckpt = save_checkpoint(tmp / "ckpt", model, 0)
+        fresh = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+        load_checkpoint(ckpt, fresh)
+        sd, back = model.state_dict(), fresh.state_dict()
+        if set(sd) != set(back) or not all(torch.equal(sd[k], back[k]) for k in sd):
+            raise AssertionError("eval CLI: the checkpoint round trip changed the state dict")
+        print(f"eval CLI: checkpoint {ckpt.name} ({ckpt.stat().st_size / 2**20:.1f} MiB, "
+              f"{len(sd)} tensors) loads back bit-equal", flush=True)
+
+        # the CLI's own dataset and loader, for the gates on one batch-4 forward
+        dataset = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, False, str(tmp))
+        _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+                                        training=False, dataset=dataset)
+        t1 = time.perf_counter()
+        host_batches = list(loader)
+        loader_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        batches = [device_batch(b, dev) for b in host_batches]
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t1
+        model = place(fresh.eval(), dev)
+        cap_audit(model, batches[0])
+        convs = recorded_forward(model, batches[0])
+        max_err, shape_times = check_kernel("A1 eval CLI", convs, a1_kernel, a1_plain,
+                                            torch.bfloat16)
+        del convs
+
+        logger = logging.getLogger("cpd_tpu_torch")
+        lines = LogLines()
+        logger.addHandler(lines)
+        out_dir = tmp / "eval"
+        argv = ["--cfg_file", EVAL_YAML, "--ckpt", str(ckpt), "--output_dir", str(out_dir),
+                "--set", *sets]
+        try:
+            torch.cuda.synchronize()
+            a1.gather_gemm.launches = 0
+            result = eval_cli.main(argv)
+            torch.cuda.synchronize()
+            launches = a1.gather_gemm.launches
+        finally:
+            logger.removeHandler(lines)
+        want = A1_PER_FORWARD[False] * n_batches
+        if launches != want:
+            raise AssertionError(f"eval CLI: A1 launched {launches} times, want {want} "
+                                 f"(21 x {n_batches} batches): off by {launches - want}")
+        with open(out_dir / "result.pkl", "rb") as f:
+            det_annos = pickle.load(f)
+        want_ids = [f"{EVAL_SEQ}#{i:04d}" for i in range(EVAL_FRAMES)]
+        if [a["frame_id"] for a in det_annos] != want_ids:
+            raise AssertionError(f"eval CLI: detections for {[a['frame_id'] for a in det_annos]}, "
+                                 f"want {want_ids}")
+        for a in det_annos:
+            if not (np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()):
+                raise AssertionError(f"eval CLI: non-finite detections in {a['frame_id']}")
+        keys = {f"{c}_{lv}/{m}" for c in cfg.CLASS_NAMES for lv in ("L1", "L2")
+                for m in ("AP", "APH")} | {"recall_0.3", "recall_0.5", "recall_0.7", "gt_count"}
+        if set(result) != keys:
+            raise AssertionError(f"eval CLI: result keys {sorted(result)}, want {sorted(keys)}")
+        fps_line = next((ln for ln in lines.lines if ln.startswith("eval: ")), "")
+        m = re.match(r"eval: (\d+) frames in ([\d.]+)s \(([\d.]+) f/s\)", fps_line)
+        if not m or int(m.group(1)) != EVAL_FRAMES:
+            raise AssertionError(f"eval CLI: no frames/s line for {EVAL_FRAMES} frames: {fps_line!r}")
+        cli_fps = float(m.group(3))
+
+        # predict alone on the same batches, already on the card: the loader,
+        # the host copies and the detection records taken out
+        model.predict(batches[0])
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for b in batches:
+                model.predict(b)
+            torch.cuda.synchronize()
+            runs.append(EVAL_FRAMES / (time.perf_counter() - t1))
+        predict_fps = statistics.median(runs)
+        n_det = sum(len(a["score"]) for a in det_annos)
+        print(f"eval CLI ({card}): {EVAL_FRAMES} frames, batch {batch_size}, {launches} A1 "
+              f"launches, {n_det} detections, result.pkl written; CLI {cli_fps:.2f} frames/s "
+              f"(its own log line: {fps_line!r}), predict alone on the same batches "
+              f"{predict_fps:.3f} frames/s (median of 3 runs over both batches: "
+              f"{', '.join(f'{r:.3f}' for r in runs)}); the data layer and the detection "
+              f"records take {1 - cli_fps / predict_fps:.1%} of the CLI's time")
+        print(f"eval CLI host side ({card}): the loader alone {loader_s * 1e3:.1f} ms for "
+              f"{EVAL_FRAMES} frames ({loader_s / EVAL_FRAMES * 1e3:.1f} ms a frame: read, "
+              f"encode, range mask, pad, collate), their copies to the card "
+              f"{copy_s * 1e3:.1f} ms (pinned, {n_batches} batches)")
+        print("eval CLI result: " + ", ".join(f"{k}={v:.4f}" for k, v in sorted(result.items())))
+    print(f"eval CLI phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return kernel_entry("gather_gemm", "eval CLI, batch 4", "cpd_tpu_torch/csrc/gather_gemm.cu",
+                        "cpd_tpu/ops/pallas_conv.py:77", launches, max_err, shape_times)
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     parser.add_argument("--determinism", type=int, metavar="RUNS",
-                        help="run only phase 11 (after the build), with RUNS runs of the step "
+                        help="run only phase 12 (after the build), with RUNS runs of the step "
                              "under the scope (at least 2)")
     parser.add_argument("--no-cudnn", action="store_true",
                         help="with --determinism: the scope turns cuDNN off instead")
@@ -1295,6 +1452,8 @@ def main():
 
     small_input_check()
     print(f"predict phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    kernels.append(eval_cli_phase(dev, card))
+    torch.cuda.empty_cache()
 
     kernels += training_phase(dev)
     kernels += probe_entries

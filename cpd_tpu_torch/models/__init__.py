@@ -1,0 +1,1 @@
+from .detector import VoxelRCNN, build_network  # noqa: F401

@@ -7,11 +7,13 @@ VoxelRCNNProtoHead -> final NMS (``predict``, eval mode), or in training
 mode -> dense-head and RoI-head losses (``loss_step``), with the MM siamese
 branch encoding the proto-completed view when ``mm=True``. The constructor
 keeps the JAX module's field names, so the JAX package's model kwargs carry
-over. The YAML-driven ``build_network`` is not ported.
+over; fields that only steer the TPU's compilation are taken and have no
+effect. ``build_network`` builds the model from a yaml config's MODEL
+section, as the JAX package's does, for the modules that are ported.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,6 +25,30 @@ from .backbone3d import VoxelResBackBone8x, stage_grids
 from .bev import BaseBEVBackbone, height_compression
 from .center_head import CenterHead
 from .roi_head import VoxelRCNNProtoHead
+
+
+# the module of each slot is chosen by its config NAME, as in the JAX package
+# (cpd_tpu/models/detector.py:38-49,545); each registry holds the names that
+# are ported. CenterPoint, AnchorHeadSingle(V2), VoxelRCNNHead,
+# VoxelBackBone8x, PillarVFE / PointPillarScatter and the TEMPORAL_MODEL,
+# PFE and WRAP_HEAD modules are not ported yet.
+_DETECTORS = ("VoxelRCNN",)
+_BACKBONES_3D = ("VoxelResBackBone8x",)
+_DENSE_HEADS = ("CenterHead",)
+_ROI_HEADS = ("VoxelRCNNProtoHead",)
+_VFES = ("MeanVFE",)
+_MAP_TO_BEV = ("HeightCompression",)
+_NO_MODULE = (None,)  # TEMPORAL_MODEL, PFE and WRAP_HEAD: only their absence
+# ROI_GRID_POOL keys that tune the TPU's pooling lookup table
+_TPU_ONLY_ROI_KEYS = ("pool_use_lut", "pool_lut_max_cells")
+
+
+def check_ported(slot: str, name, ported) -> None:
+    """Raise a KeyError naming ``name`` when the module it selects for
+    ``slot`` is not ported yet."""
+    if name not in ported:
+        raise KeyError(f"{slot} {name!r} is not ported yet (ported: "
+                       f"{[n for n in ported if n is not None] or 'none'})")
 
 
 def keys_from_frame(frame, grid: GridSpec):
@@ -42,13 +68,50 @@ class VoxelRCNN(nn.Module):
                  max_points_per_voxel=None,
                  backbone_filters: Tuple[int, ...] = (16, 32, 64, 128),
                  backbone_caps: Tuple[int, ...] = (80000, 60000, 40000, 40000),
-                 mm: bool = True, dense_tail: bool = False,
+                 mm: bool = True, remat: bool = True, remat_backbone=None, remat_roi=None,
+                 with_roi_head: bool = True,
                  num_rois: int = 500, num_rois_test: int = 200, roi_grid_size: int = 6,
-                 roi_per_image: int = 130, rpn_nms=None,
+                 roi_per_image: int = 130, bn_axis_name: Optional[str] = None, rpn_nms=None,
+                 post_nms=None, backbone3d_name: str = "VoxelResBackBone8x",
+                 backbone_lut_max_cells=None, dense_tail: bool = False,
+                 dense_head_name: str = "CenterHead", roi_head_name: str = "VoxelRCNNProtoHead",
+                 dense_head_cfg=None, roi_head_cfg=None, align_stages: int = 1,
+                 align_method: str = "mean", pack_align_stages: bool = True,
+                 vfe_name: str = "MeanVFE", vfe_filters: Tuple[int, ...] = (64,),
+                 map_to_bev_name: str = "HeightCompression", temporal_name=None,
+                 temporal_features: int = 256, num_frames: int = 1, pfe_name=None,
+                 pfe_cfg=None, wrap_head_name=None,
                  bev_layer_nums=(5, 5), bev_layer_strides=(1, 2),
                  bev_num_filters=(128, 256), bev_upsample_strides=(1, 2),
-                 bev_num_upsample_filters=(256, 256), roi_head_cfg=None):
+                 bev_num_upsample_filters=(256, 256)):
+        """The JAX module's fields, all of them. ``remat``, ``remat_backbone``,
+        ``remat_roi``, ``bn_axis_name``, ``backbone_lut_max_cells`` and
+        ``pack_align_stages`` (and ``pool_use_lut`` / ``pool_lut_max_cells``
+        in ``roi_head_cfg``) steer the TPU's compilation and have no effect
+        here; ``vfe_filters``, ``temporal_features``, ``num_frames``,
+        ``pfe_cfg`` and ``align_method`` belong to modules that are not
+        ported and have none either. ``post_nms`` and ``with_roi_head`` are
+        stored: ``predict`` does not read ``post_nms`` (neither does the JAX
+        module's), and a model without its RoI head is not ported. A name
+        that selects a module that is not ported raises a KeyError."""
         super().__init__()
+        check_ported("BACKBONE_3D.NAME", backbone3d_name, _BACKBONES_3D)
+        check_ported("DENSE_HEAD.NAME", dense_head_name, _DENSE_HEADS)
+        check_ported("ROI_HEAD.NAME", roi_head_name, _ROI_HEADS)
+        check_ported("VFE.NAME", vfe_name, _VFES)
+        check_ported("MAP_TO_BEV.NAME", map_to_bev_name, _MAP_TO_BEV)
+        check_ported("TEMPORAL_MODEL.NAME", temporal_name, _NO_MODULE)
+        check_ported("PFE.NAME", pfe_name, _NO_MODULE)
+        check_ported("WRAP_HEAD.NAME", wrap_head_name, _NO_MODULE)
+        if dense_head_cfg is not None:
+            raise KeyError("dense_head_cfg configures the anchor heads, which are not ported yet")
+        if align_stages != 1:
+            raise KeyError(f"align_stages={align_stages}: the X_TRAIN stage clones are not "
+                           "ported yet")
+        if not with_roi_head:
+            raise KeyError("a model without ROI_HEAD is not ported yet")
+        self.with_roi_head = with_roi_head
+        self.post_nms = post_nms
         self.mm = mm
         self.num_rois = num_rois
         self.num_rois_test = num_rois_test
@@ -70,12 +133,14 @@ class VoxelRCNN(nn.Module):
         self.dense_head = CenterHead(sum(bev_num_upsample_filters), num_classes,
                                      voxel_size=voxel_size,
                                      point_cloud_range=point_cloud_range)
+        roi_cfg = {k: v for k, v in dict(roi_head_cfg or {}).items()
+                   if k not in _TPU_ONLY_ROI_KEYS}
         self.roi_head = VoxelRCNNProtoHead(
             {k: grids[k] for k in ("x_conv3", "x_conv4")},
             {"x_conv3": backbone_filters[2], "x_conv4": backbone_filters[3]},
             num_rois=num_rois, roi_per_image=roi_per_image, grid_size=roi_grid_size,
             voxel_size=voxel_size, point_cloud_range=point_cloud_range, mm=mm,
-            **dict(roi_head_cfg or {}))
+            **roi_cfg)
 
     def forward(self, batch: Dict[str, torch.Tensor], sampling_uniforms=None, generator=None):
         """batch: points (B, P, C), optional points_valid (B, P); in training
@@ -159,3 +224,137 @@ class VoxelRCNN(nn.Module):
             res.append((b[idx], s[idx], l[idx], mask))
         fb, fs, fl, fv = (torch.stack(t) for t in zip(*res))
         return {"pred_boxes": fb, "pred_scores": fs, "pred_labels": fl, "pred_valid": fv}
+
+
+def set_compute_dtype(model: nn.Module, dtype) -> nn.Module:
+    """Every module of ``model`` that computes in a ``compute_dtype`` (sparse
+    convs, BEV and head convs, the RoI MLPs and towers) to ``dtype``; None
+    computes in the dtype of the features, f32."""
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return model
+
+
+def _roi_head_cfg(roi):
+    """ROI_HEAD yaml TARGET_CONFIG/LOSS_CONFIG -> VoxelRCNNProtoHead kwargs
+    (cpd_tpu/models/detector.py:574)."""
+    cfg = {}
+    t = roi.get("TARGET_CONFIG", {})
+    for yk, k in (("FG_RATIO", "fg_ratio"), ("REG_FG_THRESH", "reg_fg_thresh"),
+                  ("CLS_FG_THRESH", "cls_fg_thresh"), ("CLS_BG_THRESH", "cls_bg_thresh"),
+                  ("CLS_BG_THRESH_LO", "cls_bg_thresh_lo"),
+                  ("HARD_BG_RATIO", "hard_bg_ratio"),
+                  ("HARD_SAMPLING_THRESH", "hard_sampling_thresh"),
+                  ("HARD_SAMPLING_RATIO", "hard_sampling_ratio"),
+                  ("DIRECTION_MIN", "direction_min"),
+                  ("DIRECTION_MAX", "direction_max")):
+        if yk in t:
+            v = t[yk]
+            cfg[k] = tuple(float(x) for x in v) if isinstance(v, (list, tuple)) else float(v)
+    if "CLS_SCORE_TYPE" in t:
+        cfg["cls_score_type"] = str(t["CLS_SCORE_TYPE"])
+    if "ENABLE_HARD_SAMPLING" in t:
+        cfg["enable_hard_sampling"] = bool(t["ENABLE_HARD_SAMPLING"])
+    lw = roi.get("LOSS_CONFIG", {}).get("LOSS_WEIGHTS", {})
+    if "rcnn_proto_weight" in lw:
+        cfg["rcnn_proto_weight"] = float(lw["rcnn_proto_weight"])
+    gp = roi.get("ROI_GRID_POOL", {})
+    if "USE_LUT" in gp:
+        cfg["pool_use_lut"] = bool(gp["USE_LUT"])
+    if "LUT_MAX_CELLS" in gp:
+        cfg["pool_lut_max_cells"] = int(gp["LUT_MAX_CELLS"])
+    if "DP_RATIO" in roi:
+        cfg["dp_ratio"] = float(roi["DP_RATIO"])
+    if "SHARED_FC" in roi:
+        cfg["shared_fc"] = tuple(int(x) for x in roi["SHARED_FC"])
+    return cfg
+
+
+def build_network(model_cfg, num_class: int, data_cfg) -> VoxelRCNN:
+    """Config-driven detector factory (port of cpd_tpu/models/detector.py:608).
+
+    The module of each slot is chosen by its yaml NAME; a name whose module
+    is not ported yet raises a KeyError that names it. ``model_cfg`` /
+    ``data_cfg``: the MODEL and DATA_CONFIG sections (dicts or ConfigDicts).
+    The model comes back on the CPU with zero weights: load a state dict,
+    then place it (``utils.device.place``).
+    """
+    check_ported("MODEL.NAME", model_cfg.get("NAME", "VoxelRCNN"), _DETECTORS)
+    pcr = tuple(data_cfg["POINT_CLOUD_RANGE"])
+    vox_cfg = None
+    for proc in data_cfg["DATA_PROCESSOR"]:
+        if proc["NAME"] == "transform_points_to_voxels":
+            vox_cfg = proc
+    voxel_size = tuple(vox_cfg["VOXEL_SIZE"]) if vox_cfg else (0.1, 0.1, 0.15)
+    max_voxels = int(vox_cfg["MAX_NUMBER_OF_VOXELS"]["train"]) if vox_cfg else 150000
+    b3d = model_cfg.get("BACKBONE_3D", None)
+    dh = model_cfg.get("DENSE_HEAD", {})
+    roi = model_cfg.get("ROI_HEAD", None)
+    dense_name = dh.get("NAME", "CenterHead")
+    check_ported("DENSE_HEAD.NAME", dense_name, _DENSE_HEADS)
+    b3d_name = b3d.get("NAME", "VoxelResBackBone8x") if b3d is not None else None
+    check_ported("BACKBONE_3D.NAME", b3d_name, _BACKBONES_3D)
+    roi_name = roi.get("NAME", "VoxelRCNNProtoHead") if roi else "VoxelRCNNProtoHead"
+    check_ported("ROI_HEAD.NAME", roi_name, _ROI_HEADS)
+    dense_post = dh.get("POST_PROCESSING", {})
+    default_caps = (max(max_voxels // 2, 1024),) + tuple(
+        max(max_voxels // d, 512) for d in (4, 8, 8))
+    vfe = model_cfg.get("VFE", {}) or {}
+    m2b = model_cfg.get("MAP_TO_BEV", {}) or {}
+    tm = model_cfg.get("TEMPORAL_MODEL", None)
+    pfe_c = model_cfg.get("PFE", None)
+    wrap = model_cfg.get("WRAP_HEAD", None)
+    pfe_kwargs = {}
+    if pfe_c:
+        if "NUM_KEYPOINTS" in pfe_c:
+            pfe_kwargs["num_keypoints"] = int(pfe_c["NUM_KEYPOINTS"])
+        if "NSAMPLE" in pfe_c:
+            pfe_kwargs["nsample"] = int(pfe_c["NSAMPLE"])
+    kwargs = dict(
+        num_classes=num_class,
+        point_cloud_range=pcr,
+        voxel_size=voxel_size,
+        max_voxels=max_voxels,
+        backbone_filters=tuple(b3d.get("NUM_FILTERS", (16, 32, 64, 128))),
+        backbone_caps=tuple(b3d.get("VOXEL_CAPS", default_caps)),
+        mm=bool(b3d.get("MM", False)),
+        # VFE.SPCONV_PARITY opts into the reference's first-5-points-per-voxel mean
+        max_points_per_voxel=(
+            int(vox_cfg.get("MAX_POINTS_PER_VOXEL", 5))
+            if vox_cfg and vfe.get("SPCONV_PARITY", False) else None),
+        backbone3d_name=b3d_name,
+        backbone_lut_max_cells=int(b3d["LUT_MAX_CELLS"]) if "LUT_MAX_CELLS" in b3d else None,
+        dense_tail=bool(b3d.get("DENSE_TAIL", False)),
+        dense_head_name=dense_name,
+        roi_head_name=roi_name,
+        roi_head_cfg=_roi_head_cfg(roi) if roi else None,
+        with_roi_head=roi is not None,
+        num_rois=int(roi.get("NMS_CONFIG", {}).get("TRAIN", {}).get("NMS_POST_MAXSIZE", 500))
+        if roi else 500,
+        num_rois_test=int(roi.get("NMS_CONFIG", {}).get("TEST", {}).get("NMS_POST_MAXSIZE", 200))
+        if roi else 200,
+        roi_per_image=int(roi["TARGET_CONFIG"]["ROI_PER_IMAGE"]) if roi else 130,
+        roi_grid_size=int(roi.get("ROI_GRID_POOL", {}).get("GRID_SIZE", 6)) if roi else 6,
+        rpn_nms=dict(dense_post.get("NMS_CONFIG", {})) or None,
+        post_nms=dict(model_cfg.get("POST_PROCESSING", {}).get("NMS_CONFIG", {})) or None,
+        vfe_name=vfe.get("NAME", "MeanVFE"),
+        vfe_filters=tuple(vfe.get("NUM_FILTERS", (64,))),
+        map_to_bev_name=m2b.get("NAME", "HeightCompression"),
+        temporal_name=tm.get("NAME") if tm else None,
+        temporal_features=int(tm.get("NUM_TEMPORAL_FEATURES", 256)) if tm else 256,
+        num_frames=int(data_cfg.get("NUM_FRAMES", 1) or 1),
+        pfe_name=pfe_c.get("NAME") if pfe_c else None,
+        pfe_cfg=pfe_kwargs or None,
+        wrap_head_name=wrap.get("NAME") if wrap else None,
+    )
+    b2d = model_cfg.get("BACKBONE_2D", {}) or {}
+    if "LAYER_NUMS" in b2d:
+        kwargs.update(
+            bev_layer_nums=tuple(b2d["LAYER_NUMS"]),
+            bev_layer_strides=tuple(b2d.get("LAYER_STRIDES", (1, 2))),
+            bev_num_filters=tuple(b2d.get("NUM_FILTERS", (128, 256))),
+            bev_upsample_strides=tuple(b2d.get("UPSAMPLE_STRIDES", (1, 2))),
+            bev_num_upsample_filters=tuple(b2d.get("NUM_UPSAMPLE_FILTERS", (256, 256))),
+        )
+    return VoxelRCNN(**kwargs)

@@ -91,6 +91,18 @@ class AdamOneCycle(torch.optim.Optimizer):
         self.grad_norm_clip = grad_norm_clip
         self.count = 0
 
+    def state_dict(self):
+        """The torch optimizer state (moments, hyperparameters) and the update
+        count that the schedules read."""
+        out = super().state_dict()
+        out["count"] = self.count
+        return out
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+
     @torch.no_grad()
     def global_grad_norm(self):
         grads = [p.grad for g in self.param_groups for p in g["params"] if p.grad is not None]
@@ -225,3 +237,20 @@ def make_train_step():
         return state, tb
 
     return train_step
+
+
+def make_eval_step(model: nn.Module):
+    """-> ``eval_step(batch)``: ``model.predict`` in eval mode under
+    ``torch.no_grad()`` on the device the model lives on (port of
+    cpd_tpu/parallel/trainer.py:189, one device; tensors of ``batch`` that
+    are elsewhere are moved there)."""
+    model.eval()
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def eval_step(batch):
+        batch = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+                 for k, v in batch.items()}
+        return model.predict(batch)
+
+    return eval_step

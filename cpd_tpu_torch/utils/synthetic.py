@@ -220,3 +220,76 @@ def make_train_batch(seed: int, batch: int = 2, n_points: int = 200_000, n_gt: i
                      ("css_score", rng.uniform(0.3, 1.0, n_gt).astype(np.float32))):
             out[k].append(v)
     return {k: np.stack(v) for k, v in out.items()}
+
+
+CLASS_SIZES = {"Vehicle": (4.6, 2.0, 1.7), "Pedestrian": (0.8, 0.8, 1.8),
+               "Cyclist": (1.8, 0.8, 1.7)}
+
+
+def _class_boxes(rng, n, r_max):
+    """``n`` class-sized boxes standing on the ground at random places within
+    ``r_max`` m: (boxes (n, 7) float32, names (n,))."""
+    names = np.asarray(list(CLASS_SIZES))[rng.integers(0, len(CLASS_SIZES), n)]
+    dims = np.asarray([CLASS_SIZES[c] for c in names], np.float32).reshape(n, 3)
+    dims = dims * rng.uniform(0.9, 1.15, (n, 3))
+    r = 5.0 + (r_max - 5.0) * rng.random(n)
+    az = rng.uniform(0, 2 * np.pi, n)
+    boxes = np.concatenate([(r * np.cos(az))[:, None], (r * np.sin(az))[:, None],
+                            dims[:, 2:3] / 2, dims, rng.uniform(-np.pi, np.pi, (n, 1))], axis=1)
+    return boxes.astype(np.float32), names
+
+
+def write_waymo_sequence(data_root, seq: str, frames, seed: int = 0, n_boxes: int = 8,
+                         r_max: float = 70.0, protos: bool = False):
+    """Write ``frames`` (point arrays (N, >= 4): x y z intensity ...) as one
+    sequence of the processed Waymo layout that
+    ``datasets.waymo_unsupervised.WaymoUnsupervisedDataset`` reads, under
+    ``data_root/waymo_processed_data/seq`` (the yamls' PROCESSED_DATA_TAG):
+
+    * ``NNNN.npy``: (N, 6) [x y z intensity elongation NLZ], elongation 0 and
+      NLZ -1 (every point kept);
+    * ``<seq>.pkl``: per frame an identity pose and ``n_boxes`` gt boxes
+      (``annos``: boxes, names, points counted in each, difficulty 0);
+    * ``<seq>_outline_C_PROTO.pkl``: per frame ``n_boxes`` pseudo-label boxes
+      drawn the same way, scores in [0.3, 1] and prototype ids 0-2 (the
+      pseudo-label factory that makes these is not ported);
+    * with ``protos``, ``<seq>_outline_MFCF_CSS_proto.pkl``: three prototype
+      banks a class of 64 box-canonical points each (training mode reads them).
+
+    Every draw comes from ``numpy.random.default_rng([seed, frame])``.
+    Returns the sequence directory."""
+    import pickle
+    from pathlib import Path
+
+    from ..datasets.box_np import points_in_boxes_mask_np
+
+    seq_dir = Path(data_root) / "waymo_processed_data" / seq
+    seq_dir.mkdir(parents=True, exist_ok=True)
+    infos, labels = [], {}
+    for i, pts in enumerate(frames):
+        rng = np.random.default_rng([seed, i])
+        disk = np.zeros((len(pts), 6), np.float32)
+        disk[:, :4] = pts[:, :4]
+        disk[:, 5] = -1
+        np.save(seq_dir / f"{i:04d}.npy", disk)
+        boxes, names = _class_boxes(rng, n_boxes, r_max)
+        n_in = points_in_boxes_mask_np(disk[:, :3], boxes).sum(axis=1)
+        infos.append({"pose": np.eye(4), "frame_id": f"{seq}_{i:03d}",
+                      "point_cloud": {"lidar_sequence": seq, "sample_idx": i},
+                      "annos": {"gt_boxes_lidar": boxes, "name": names,
+                                "num_points_in_gt": n_in, "difficulty": np.zeros(n_boxes)}})
+        oboxes, onames = _class_boxes(rng, n_boxes, r_max)
+        labels[i] = {"outline_box": oboxes, "outline_cls": onames,
+                     "outline_score": rng.uniform(0.3, 1.0, n_boxes).astype(np.float32),
+                     "outline_proto_id": rng.integers(0, 3, n_boxes)}
+    with open(seq_dir / f"{seq}.pkl", "wb") as f:
+        pickle.dump(infos, f)
+    with open(seq_dir / f"{seq}_outline_C_PROTO.pkl", "wb") as f:
+        pickle.dump(labels, f)
+    if protos:
+        rng = np.random.default_rng([seed, len(frames)])
+        banks = {c: {pid: {"points": (rng.uniform(-0.5, 0.5, (64, 3)) * size).astype(np.float32)}
+                     for pid in range(3)} for c, size in CLASS_SIZES.items()}
+        with open(seq_dir / f"{seq}_outline_MFCF_CSS_proto.pkl", "wb") as f:
+            pickle.dump({"proto_points_set": banks}, f)
+    return seq_dir

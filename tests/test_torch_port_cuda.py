@@ -688,3 +688,50 @@ def test_voxelizer_gives_the_same_bits_twice(cuda, max_points):
         else:
             assert torch.equal(a.cpu(), c), name
     assert int(first.valid.sum()) > 10_000
+
+
+@pytest.mark.cuda
+def test_eval_cli_runs_on_the_card_by_default(cuda, tmp_path):
+    """``cpd_tpu_torch.tools.test.main`` without ``--device`` runs on the card:
+    the shipped yaml cut to a 24 m square and 2 frames of 20k points, its
+    weights from a checkpoint; 21 A1 launches a batch, one finite detection
+    record a frame, and the CPU run of the same checkpoint finds the same
+    frames."""
+    import pickle
+
+    from cpd_tpu_torch.config import ConfigDict, cfg_from_list, cfg_from_yaml_file
+    from cpd_tpu_torch.models import build_network
+    from cpd_tpu_torch.tools import test as eval_cli
+    from cpd_tpu_torch.utils.checkpoint import save_checkpoint
+    from cpd_tpu_torch.utils.synthetic import write_waymo_sequence
+
+    yaml_file = "tools/cfgs/models/voxel_rcnn_cproto_center.yaml"
+    sets = ["DATA_CONFIG.DATA_PATH", str(tmp_path), "DATA_CONFIG.SAMPLED_INTERVAL.test", "1",
+            "DATA_CONFIG.POINT_CLOUD_RANGE", "[-12.0,-12.0,-2.0,12.0,12.0,4.0]",
+            "DATA_CONFIG.POINT_CAP", "20000"]
+    frames = []
+    for i in range(2):
+        pts, _ = make_lidar_frame(np.random.default_rng(i), 60_000)
+        frames.append(pts[(np.abs(pts[:, 0]) < 12) & (np.abs(pts[:, 1]) < 12)])
+    write_waymo_sequence(tmp_path, "segment-0000", frames, n_boxes=4, r_max=11.0)
+    cfg = cfg_from_list(sets, cfg_from_yaml_file(yaml_file, ConfigDict()))
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+    model.load_state_dict(seeded_state_dict(model, 0), strict=True)
+    ckpt = save_checkpoint(tmp_path / "ckpt", model, 0)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / device
+        argv = ["--cfg_file", yaml_file, "--ckpt", str(ckpt), "--batch_size", "2",
+                "--output_dir", str(out)] + (["--device", "cpu"] if device == "cpu" else [])
+        gg.gather_gemm.launches = 0
+        result = eval_cli.main(argv + ["--set", *sets])
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert gg.gather_gemm.launches == 21
+        with open(out / "result.pkl", "rb") as f:
+            runs[device] = pickle.load(f)
+        assert result["gt_count"] == 8
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert a["frame_id"] == b["frame_id"]
+        assert np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
+        assert len(a["score"]) > 0

@@ -80,8 +80,30 @@ def test_jax_tree_at_the_defaults_loads_into_the_port_at_the_defaults():
                                                                   "dropout"))}
     shapes = jax.eval_shape(lambda: jm.init(rngs, batch, True))
     variables = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
-    pm = detector.VoxelRCNN(**{k: v for k, v in _TINY.items() if k != "remat"})
+    pm = detector.VoxelRCNN(**_TINY)
     assert pm.mm and jm.mm
     sd = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, variables), pm)
     pm.load_state_dict(sd, strict=True)
     assert any(k.startswith("backbone.branch1.") for k in sd)  # the MM branch is there
+
+
+def test_voxel_rcnn_takes_the_full_jax_field_set():
+    """The port's constructor takes every field of the JAX module by name
+    (flax's own ``parent`` and ``name`` aside), and no other."""
+    fields = {f.name for f in dataclasses.fields(jdet.VoxelRCNN)} - {"parent", "name"}
+    params = set(inspect.signature(detector.VoxelRCNN.__init__).parameters) - {"self"}
+    assert fields == params, (sorted(fields - params), sorted(params - fields))
+
+
+def test_tpu_only_fields_have_no_effect():
+    """The fields that steer the TPU's compilation change nothing: the same
+    state dict keys and shapes as at the defaults."""
+    base = detector.VoxelRCNN(**_TINY)
+    tuned = detector.VoxelRCNN(**dict(
+        _TINY, remat=True, remat_backbone=False, remat_roi=True, bn_axis_name="data",
+        backbone_lut_max_cells=4096, pack_align_stages=False,
+        roi_head_cfg={"pool_use_lut": True, "pool_lut_max_cells": 1024},
+        post_nms={"NMS_THRESH": 0.3}))
+    assert {k: v.shape for k, v in base.state_dict().items()} == {
+        k: v.shape for k, v in tuned.state_dict().items()}
+    assert tuned.post_nms == {"NMS_THRESH": 0.3} and tuned.with_roi_head

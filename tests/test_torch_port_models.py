@@ -293,12 +293,11 @@ def test_weight_bridge_strict_both_ways():
     from __graft_entry__ import _TINY
     from cpd_tpu.models.detector import VoxelRCNN as JVoxelRCNN
     from cpd_tpu_torch.models.detector import VoxelRCNN
-    kw = {k: v for k, v in _TINY.items() if k != "remat"}
     jm = JVoxelRCNN(**_TINY, mm=False)
     batch = {"points": jnp.zeros((1, 64, 5)), "points_valid": jnp.ones((1, 64), bool)}
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), batch, False))
     variables = seeded_jax_variables(shapes, 0)
-    pm = VoxelRCNN(**kw, mm=False)
+    pm = VoxelRCNN(**_TINY, mm=False)
     sd = state_dict_from_jax(variables, pm)
     n_leaves = len(jax.tree_util.tree_leaves(variables))
     assert len(sd) == n_leaves == len(pm.state_dict())

@@ -116,7 +116,7 @@ def port_setup():
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     shapes = jax.eval_shape(lambda: jm.init(rngs, jbatch, True))
     variables = _well_conditioned(seeded_jax_variables(shapes, 0))
-    pm = VoxelRCNN(**{k: v for k, v in KW.items() if k != "remat"})
+    pm = VoxelRCNN(**KW)
     state_dict = state_dict_from_jax(variables, pm)
     pm.load_state_dict(state_dict, strict=True)
     batch["gt_boxes"], batch["gt_valid"] = _labels_on_proposals(pm, batch, rng)
