@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --determinism RUNS [--no-cudnn]   # phase 12 alone
+    python3 chip_smoke.py --determinism RUNS [--no-cudnn]   # phase 13 alone
 
 Drives the port's paths at the bench configuration of the JAX package
 (bench.py: 3 classes, range +-75.2 x [-2, 4] m, voxels (0.1, 0.1, 0.15) m,
@@ -9,7 +9,8 @@ grid 1504 x 1504 x 41, voxel cap 90k, stage caps (80k, 48k, 24k, 20k), 200
 test RoIs) on 200k-point synthetic lidar frames, with weights drawn from a
 seed: ``cpd_tpu_torch.models.detector.VoxelRCNN.predict`` (batch 1, MM
 branch off) with the dense backbone tail, as bench.py runs it, and with the
-sparse tail; the evaluation CLI ``cpd_tpu_torch.tools.test`` on the shipped
+sparse tail; the evaluation CLI ``cpd_tpu_torch.tools.test`` and the
+training CLI ``cpd_tpu_torch.tools.train`` on the shipped
 voxel_rcnn_cproto_center.yaml (batch 4, 8 written frames); the training step
 of ``cpd_tpu_torch.parallel``
 (``VoxelRCNN.loss_step`` with ``mm=True``, batch 2, 64 label slots, backward,
@@ -74,22 +75,42 @@ raising on failure:
    record a frame, result.pkl written, the AP/APH and recall keys in its
    result; its own frames/s beside ``predict`` alone on the same batches
    (the difference is the data layer's host cost), and the phase's seconds;
-9. the kernels of one training step on their real operands, recorded from a
+9. the training CLI, ``cpd_tpu_torch.tools.train.main``, as a user runs it:
+   the same yaml at full width (MM on, adam_onecycle) on 8 written frames
+   with prototype banks (the ``points1`` view), batch 4, two steps an
+   epoch. Before the CLI runs: the cap audit of a batch-4 training batch,
+   both views, and A1 forward, A1 as dX and A2 against their plain versions
+   on the operands of one batch-4 step of the CLI's model, times per layer
+   shape, and ``make_train_step`` alone on the same batches on the card.
+   Then three calls: A ``--epochs 2 --debug_steps 2`` (stops after epoch
+   0), A ``--epochs 2 --eval_after 1`` (auto-resumes; evaluates
+   checkpoint_epoch_1), B ``--epochs 2``. Gates: A's checkpoint_epoch_1
+   equal to B's bit for bit, 2 + 2 and 4 steps, every step's launches
+   those of the first (A1 35 + 33, A2 35), finite losses with
+   ``proto_loss``, no step skipped, one metrics.jsonl record a logged step,
+   one finite detection record a frame, B's last checkpoint stripped by
+   ``tools.strip_checkpoint`` gives the same predict outputs and result.pkl
+   bit for bit, and ``tools.merge_detections`` of that result.pkl with the
+   sequence's labelled boxes (twice: each has a twin) fuses on the card
+   into input boxes. Prints the CLI's phase means (data, h2d, step),
+   steps/s, each step's ms, the step alone, the training loader alone, the
+   data layer's host share, peak memory and the phase's seconds;
+10. the kernels of one training step on their real operands, recorded from a
    forward + backward: A1 forward (35 convs), A1 as dX (33) and A2 (35)
    against their plain versions, f32 (1e-4 of the output's scale: A2 sums
    up to 180,000 rows in another order) and bf16; times per layer shape;
-10. training path, every step through ``make_train_step``: the launch counts
+11. training path, every step through ``make_train_step``: the launch counts
    of the first step (A1 35 forward + 33 dX, A2 35; the forward's share is
    read where that step's ``loss_step`` returns), a second warm-up, then 5
    timed steps (ms per step median/min/max, and the phases forward, backward,
    clip + update between CUDA events of those same steps), peak memory,
    finite losses with ``proto_loss`` among them, no skipped step, parameters
    of both branches moved, and a torch.profiler window of a step;
-11. a small training step on the CPU and on the card, same weights, proposals
+12. a small training step on the CPU and on the card, same weights, proposals
     and sampling uniforms: at f32 the losses agree to 1e-3 and the gradients
     to a cosine of 0.999; at bf16 (the main path's dtype), on a configuration
     whose BEV maps are 32 x 32 and 16 x 16, within a looser tier;
-12. step determinism, a gate: one training step (loss_step + backward under
+13. step determinism, a gate: one training step (loss_step + backward under
     ``deterministic_cudnn``, as ``make_train_step`` runs it) three times in one
     process from the same state, the third under
     ``torch.use_deterministic_algorithms``: every forward tensor and gradient
@@ -113,6 +134,7 @@ computes a gather-GEMM, so ``library_ms`` is null except for G4, the gather
 alone, where it is ``torch.index_select``'s time.
 """
 import argparse
+import ast
 import json
 import logging
 import math
@@ -138,10 +160,15 @@ from cpd_tpu_torch.ops import cuda_build
 from cpd_tpu_torch.ops import gather_gemm as a1
 from cpd_tpu_torch.ops import gather_probes as gp
 from cpd_tpu_torch.ops import sparse
+from cpd_tpu_torch import parallel
+from cpd_tpu_torch.ops import nms
 from cpd_tpu_torch.ops.voxelizer import voxelize_batch
-from cpd_tpu_torch.parallel import init_state, make_train_step
+from cpd_tpu_torch.parallel import init_state, make_train_step, step_generator
 from cpd_tpu_torch.probes import gather as probes
+from cpd_tpu_torch.tools import merge_detections
 from cpd_tpu_torch.tools import test as eval_cli
+from cpd_tpu_torch.tools import train as train_cli
+from cpd_tpu_torch.tools.strip_checkpoint import strip_checkpoint
 from cpd_tpu_torch.tools.train import device_batch
 from cpd_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from cpd_tpu_torch.utils.device import place
@@ -758,7 +785,7 @@ def _first_differences(run_a, run_b):
 
 
 def step_determinism(dev, runs=2, cudnn=True):
-    """Phase 11, a gate. One training step (loss_step and backward, the bench
+    """Phase 13, a gate. One training step (loss_step and backward, the bench
     configuration, batch 2, the labels placed once) run ``runs`` times from
     the same weights, statistics and generator seed, under
     ``deterministic_cudnn`` as ``make_train_step`` runs it (``cudnn=False``:
@@ -1270,13 +1297,14 @@ class LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def write_eval_sequence(root):
+def write_eval_sequence(root, protos=False):
     """8 frames of ``make_lidar_frame`` at 200k points in the processed Waymo
-    layout, with gt boxes in the infos and pseudo-labels drawn the same way:
+    layout, with gt boxes in the infos and pseudo-labels drawn the same way
+    (``protos``: and prototype banks, for the ``points1`` view of training):
     the pseudo-label factory that writes <seq>_outline_C_PROTO.pkl is not
     ported yet."""
     frames = [make_lidar_frame(np.random.default_rng(i), N_POINTS)[0] for i in range(EVAL_FRAMES)]
-    write_waymo_sequence(root, EVAL_SEQ, frames, seed=0, n_boxes=8)
+    write_waymo_sequence(root, EVAL_SEQ, frames, seed=0, n_boxes=8, protos=protos)
 
 
 def eval_cli_phase(dev, card):
@@ -1392,10 +1420,379 @@ def eval_cli_phase(dev, card):
                         "cpd_tpu/ops/pallas_conv.py:77", launches, max_err, shape_times)
 
 
+class CLISteps:
+    """Reads the training CLI's own steps from inside: while it is active,
+    every train step that ``parallel.make_train_step`` hands out (the CLI
+    looks it up there) records its run's tag, its A1 and A2 launches split
+    where its ``loss_step`` returns (forward, dX, A2, A2 in the forward), its
+    host ms (synchronised) and its tb as numbers. One row per step."""
+
+    def __init__(self):
+        self.rows = []
+        self.run = None
+
+    def __enter__(self):
+        self.saved = parallel.make_train_step, VoxelRCNN.loss_step
+        make, loss_step = self.saved
+        rows = self.rows
+
+        def counts():
+            return a1.gather_gemm.launches, a1.gather_gemm_dw.launches
+
+        def counted_loss_step(model, *args, **kwargs):
+            out = loss_step(model, *args, **kwargs)
+            rows[-1]["forward"] = counts()
+            return out
+
+        def counted_make_train_step():
+            step = make()
+
+            def counted_step(state, batch, generator=None, sampling_uniforms=None):
+                rows.append({"run": self.run, "start": counts()})
+                t0 = time.perf_counter()
+                state, tb = step(state, batch, generator, sampling_uniforms)
+                torch.cuda.synchronize()
+                row = rows[-1]
+                (s1, s2), (f1, f2), (e1, e2) = row["start"], row["forward"], counts()
+                row.update(launches=(f1 - s1, e1 - f1, e2 - s2, f2 - s2),
+                           ms=(time.perf_counter() - t0) * 1e3,
+                           tb={k: float(v) for k, v in tb.items()})
+                return state, tb
+            return counted_step
+
+        parallel.make_train_step, VoxelRCNN.loss_step = counted_make_train_step, counted_loss_step
+        return self
+
+    def __exit__(self, *exc):
+        parallel.make_train_step, VoxelRCNN.loss_step = self.saved
+
+
+def _ckpt_difference(path_a, path_b):
+    """The first tensor (model, then optimizer state) or number in which two
+    checkpoints differ, or None where they are equal bit for bit."""
+    a, b = (torch.load(p, map_location="cpu", weights_only=True) for p in (path_a, path_b))
+    for key in ("epoch", "it"):
+        if a[key] != b[key]:
+            return f"{key}: {a[key]} vs {b[key]}"
+    if set(a["model_state"]) != set(b["model_state"]):
+        return "model_state keys"
+    for k, v in a["model_state"].items():
+        if not torch.equal(v, b["model_state"][k]):
+            return f"model_state[{k!r}]"
+    oa, ob = a["optimizer_state"], b["optimizer_state"]
+    if oa["count"] != ob["count"] or oa["param_groups"] != ob["param_groups"]:
+        return f"optimizer count {oa['count']} vs {ob['count']} or its param groups"
+    if set(oa["state"]) != set(ob["state"]):
+        return "optimizer_state keys"
+    for k, st in oa["state"].items():
+        for name, v in st.items():
+            if not torch.equal(v, ob["state"][k][name]):
+                return f"optimizer_state[{k}][{name!r}]"
+    return None
+
+
+def cudnn_off_runs_agree(model, batch, generator_seed, dev):
+    """Two loss_step + backward runs from the same state with cuDNN off:
+    None where every gradient agrees bit for bit, else the first that
+    differs (tells cuDNN's engines from the machine, as phase 13 does)."""
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(start, strict=True)
+        model.train().zero_grad(set_to_none=True)
+        with torch.backends.cudnn.flags(enabled=False):
+            loss, _ = model.loss_step(batch, generator=step_generator(generator_seed, 0, dev))
+            loss.backward()
+        torch.cuda.synchronize()
+        runs.append([(n, p.grad.clone()) for n, p in model.named_parameters()
+                     if p.grad is not None])
+    return next((n for (n, x), (_, y) in zip(*runs) if not torch.equal(x, y)), None)
+
+
+def _phase_means(lines):
+    """{run's last epoch line: (steps, steps/s, {phase: mean s})} from the
+    CLI's epoch log lines."""
+    found = [re.match(r"epoch \d+ done in [\d.]+s \((\d+) steps, ([\d.]+) steps/s\); phase "
+                      r"means: (\{.*\})", ln) for ln in lines]
+    return [(int(m.group(1)), float(m.group(2)), ast.literal_eval(m.group(3)))
+            for m in found if m]
+
+
+def train_cli_phase(dev, card):
+    """The training entry point at full width, as a user runs it:
+    ``cpd_tpu_torch.tools.train.main`` on the shipped yaml (MM on, voxel cap
+    150k, stage caps 80k / 40k / 20k / 20k, adam_onecycle) and a written
+    Waymo sequence of 8 frames of 200k points with prototype banks, batch 4:
+    two steps an epoch. Before the CLI: the cap audit of a batch-4 training
+    batch (``points`` and the ``points1`` view), and A1 forward, A1 as dX
+    and A2 against their plain versions on the operands of one batch-4 step
+    of the CLI's model. Then three calls: A (a) ``--epochs 2 --debug_steps 2``
+    (stops after epoch 0: ``--epochs`` sets the one-cycle schedule's length),
+    (b) ``--epochs 2 --eval_after 1`` (auto-resumes, then evaluates
+    checkpoint_epoch_1 through the eval CLI), B ``--epochs 2`` unbroken.
+    Gates: A's and B's checkpoint_epoch_1 equal bit for bit; 2 + 2 and 4
+    steps; every step's A1 (forward, dX) and A2 launches those of the first
+    (35, 33, 35); finite losses with ``proto_loss``, no step skipped; one
+    metrics.jsonl record a logged step; the eval's result.pkl one finite
+    record a frame; B's last checkpoint stripped gives the same predict
+    outputs and result.pkl bit for bit; ``merge_detections`` of that
+    result.pkl and the sequence's labelled boxes (twice) fuses on the card,
+    every fused box an input box within 1e-5. Returns the kernels-line
+    entries of the three kernel uses."""
+    t0 = time.perf_counter()
+    seed = train_cli.parse_args(["--cfg_file", EVAL_YAML]).seed
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_eval_sequence(tmp, protos=True)
+        sets = ["DATA_CONFIG.DATA_PATH", str(tmp), "DATA_CONFIG.SAMPLED_INTERVAL.train", "1",
+                "DATA_CONFIG.SAMPLED_INTERVAL.test", "1"]
+        cfg = cfg_from_list(sets, cfg_from_yaml_file(EVAL_YAML, ConfigDict()))
+        batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+        steps_per_epoch = EVAL_FRAMES // batch_size
+        if (cfg.OPTIMIZATION.OPTIMIZER, cfg.MODEL.BACKBONE_3D.MM) != ("adam_onecycle", True):
+            raise AssertionError("train CLI: the yaml no longer trains adam_onecycle with MM on")
+
+        # epoch 0's batches in the CLI's order, and the CLI's model and weights
+        dataset = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, True, str(tmp))
+        _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+                                        training=True, seed=seed, dataset=dataset)
+        t1 = time.perf_counter()
+        host_batches = list(loader)
+        loader_s = time.perf_counter() - t1
+        batches = [device_batch(b, dev) for b in host_batches]
+        del host_batches
+        model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+        model.load_state_dict(seeded_state_dict(model, seed), strict=True)
+        state = init_state(model, cfg.OPTIMIZATION, steps_per_epoch * 2, device=dev)
+        b0 = batches[0]
+        cap_audit(model, b0)
+        cap_audit(model, {"points": b0["points1"], "points_valid": b0["points1_valid"]})
+        checks = train_kernel_checks(model, b0, step_generator(seed, 0, dev))
+
+        # make_train_step alone on the same batches, already on the card
+        train_step = make_train_step()
+        state, _ = train_step(state, b0, step_generator(seed, state.step, dev))
+        torch.cuda.synchronize()
+        passes = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            for b in batches:
+                state, _ = train_step(state, b, step_generator(seed, state.step, dev))
+            torch.cuda.synchronize()
+            passes.append((time.perf_counter() - t1) / len(batches))
+        step_alone = statistics.median(passes)
+        del state, model
+        torch.cuda.empty_cache()
+
+        logger = logging.getLogger("cpd_tpu_torch")
+        lines = LogLines()
+        logger.addHandler(lines)
+        calls = [("a", "A", ["--epochs", "2", "--debug_steps", str(steps_per_epoch),
+                             "--fix_random_seed", "--log_every", "1"]),
+                 ("b", "A", ["--epochs", "2", "--eval_after", "1"]),
+                 ("c", "B", ["--epochs", "2", "--log_every", "2"])]
+        states, logs, secs = {}, {}, {}
+        try:
+            with CLISteps() as steps:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                a1.gather_gemm.launches = a1.gather_gemm_dw.launches = 0
+                for run, out, extra in calls:
+                    steps.run, mark, t1 = run, len(lines.lines), time.perf_counter()
+                    states[run] = train_cli.main(["--cfg_file", EVAL_YAML, "--output_dir",
+                                                  str(tmp / out), *extra, "--set", *sets])
+                    torch.cuda.synchronize()
+                    secs[run], logs[run] = time.perf_counter() - t1, lines.lines[mark:]
+                totals = a1.gather_gemm.launches, a1.gather_gemm_dw.launches
+                peak = torch.cuda.max_memory_allocated()
+        finally:
+            logger.removeHandler(lines)
+
+        # gates
+        got = [r["run"] for r in steps.rows]
+        want = ["a"] * steps_per_epoch + ["b"] * steps_per_epoch + ["c"] * 2 * steps_per_epoch
+        if got != want or [states[r].step for r in "abc"] != [steps_per_epoch,
+                                                             2 * steps_per_epoch,
+                                                             2 * steps_per_epoch]:
+            raise AssertionError(f"train CLI: steps by run {got}, want {want}; final steps "
+                                 f"{[states[r].step for r in 'abc']}")
+        if not any("auto-resumed from epoch 0" in ln for ln in logs["b"]):
+            raise AssertionError("train CLI: the second call did not log its auto-resume")
+        first = steps.rows[0]["launches"]
+        if first != (TRAIN_A1_FORWARD, TRAIN_A1_DX, TRAIN_A2, 0) or any(
+                r["launches"] != first for r in steps.rows):
+            raise AssertionError(f"train CLI: (A1 forward, A1 dX, A2, A2 in the forward) per "
+                                 f"step {[r['launches'] for r in steps.rows]}, want "
+                                 f"{(TRAIN_A1_FORWARD, TRAIN_A1_DX, TRAIN_A2, 0)} every step")
+        fwd, dx, a2 = (sum(r["launches"][i] for r in steps.rows) for i in range(3))
+        eval_a1 = A1_PER_FORWARD[False] * math.ceil(EVAL_FRAMES / batch_size)
+        if totals != (fwd + dx + eval_a1, a2):
+            raise AssertionError(f"train CLI: the counters read (A1, A2) = {totals}, the steps "
+                                 f"and the eval account for {(fwd + dx + eval_a1, a2)}")
+        for r in steps.rows:
+            bad = [k for k, v in r["tb"].items() if not math.isfinite(v)]
+            if bad or "proto_loss" not in r["tb"] or r["tb"]["skipped_nonfinite"]:
+                raise AssertionError(f"train CLI step of run {r['run']}: non-finite {bad}, tb "
+                                     f"keys {sorted(r['tb'])}")
+        diff = _ckpt_difference(tmp / "A" / "ckpt" / "checkpoint_epoch_1.pth",
+                                tmp / "B" / "ckpt" / "checkpoint_epoch_1.pth")
+        if diff is not None:
+            model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+            load_checkpoint(tmp / "B" / "ckpt" / "checkpoint_epoch_0.pth", model)
+            off = cudnn_off_runs_agree(place(model, dev), b0, seed, dev)
+            raise AssertionError(f"train CLI: the resumed run's checkpoint_epoch_1 differs from "
+                                 f"the unbroken run's, first at {diff}; two steps with cuDNN "
+                                 f"off {'agree' if off is None else 'differ at ' + off}")
+        # A logs every step of (a) (--debug_steps) and none of (b) (every 20th); B every 2nd
+        for out, run_names, want_steps in (
+                ("A", "ab", list(range(1, steps_per_epoch + 1))),
+                ("B", "c", list(range(2, 2 * steps_per_epoch + 1, 2)))):
+            with open(tmp / out / "metrics.jsonl") as f:
+                recs = [json.loads(ln) for ln in f]
+            logged = [int(m.group(1)) for run in run_names for ln in logs[run]
+                      for m in [re.match(r"epoch \d+ it (\d+) ", ln)] if m]
+            if not [r["step"] for r in recs] == logged == want_steps:
+                raise AssertionError(f"train CLI {out}: metrics.jsonl steps "
+                                     f"{[r['step'] for r in recs]}, logged steps {logged}")
+        with open(tmp / "A" / "eval_epoch_1" / "result.pkl", "rb") as f:
+            full = pickle.load(f)
+        want_ids = [f"{EVAL_SEQ}#{i:04d}" for i in range(EVAL_FRAMES)]
+        if [a["frame_id"] for a in full] != want_ids or not all(
+                np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
+                for a in full):
+            raise AssertionError(f"train CLI: the eval's result.pkl holds "
+                                 f"{[a['frame_id'] for a in full]}, or non-finite detections")
+
+        runs = {r: _phase_means(logs[r]) for r in "abc"}
+        n_steps, _, means = runs["c"][-1]
+        share = 1 - means["step"] / sum(means[k] for k in ("data", "h2d", "step"))
+        print(f"train CLI ({card}): batch {batch_size}, {steps_per_epoch} steps an epoch, runs "
+              f"(a) {secs['a']:.1f} s, (b) {secs['b']:.1f} s with its eval, (c) "
+              f"{secs['c']:.1f} s; steps/s by epoch (a) {[e[1] for e in runs['a']]}, (b) "
+              f"{[e[1] for e in runs['b']]}, (c) {[e[1] for e in runs['c']]}; the CLI's phase "
+              f"means over run (c)'s {n_steps * len(runs['c'])} steps: "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in means.items()), flush=True)
+        print(f"train CLI ({card}): make_train_step alone on the same {len(batches)} batches "
+              f"on the card {step_alone * 1e3:.1f} ms a step (median of 3 passes: "
+              f"{', '.join(f'{p * 1e3:.1f}' for p in passes)}); the data layer's host share "
+              f"in training 1 - step / (data + h2d + step) = {share:.1%}; peak memory "
+              f"{peak / 2**30:.2f} GiB; per step A1 {first[0]} forward + {first[1]} dX, A2 "
+              f"{first[2]}; {len(steps.rows)} steps, {totals[0]} A1 launches with the eval's "
+              f"{eval_a1}, {totals[1]} A2; the training loader alone {loader_s * 1e3:.1f} ms "
+              f"for {EVAL_FRAMES} frames ({loader_s / EVAL_FRAMES * 1e3:.1f} ms a frame: read, "
+              f"augment, prototypes, encode, pad, collate; {loader.num_threads} threads)",
+              flush=True)
+        print(f"train CLI ({card}): ms of each step inside the CLI, by call: " + "; ".join(
+            f"({run}) " + ", ".join(f"{r['ms']:.1f}" for r in steps.rows if r["run"] == run)
+            for run in "abc"), flush=True)
+        for run in "abc":
+            print(f"train CLI ({card}) run ({run}) log: " + " | ".join(
+                ln for ln in logs[run]
+                if re.match(r"(epoch \d+ |auto-resumed|model params)", ln)), flush=True)
+
+        # the deploy checkpoint: the same weights, the same outputs. Four
+        # steps on drawn labels leave the model detecting nothing (every
+        # score under its threshold), so the raw predict outputs, kept slots
+        # or not, are compared too
+        last = tmp / "B" / "ckpt" / "checkpoint_epoch_1.pth"
+        stripped = strip_checkpoint(last)
+        models = []
+        for path in (last, stripped):
+            models.append(build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG))
+            load_checkpoint(path, models[-1])
+        sd_full, sd_stripped = (m.state_dict() for m in models)
+        if not all(torch.equal(v, sd_full[k]) for k, v in sd_stripped.items()):
+            raise AssertionError("train CLI: the stripped checkpoint loads other weights")
+        preds = [place(m.eval(), dev).predict(b0) for m in models]
+        # bit for bit: slots that pred_valid leaves out may hold NaN
+        differ = [k for k, v in preds[0].items() if not torch.equal(
+            v.contiguous().view(torch.uint8), preds[1][k].contiguous().view(torch.uint8))]
+        if differ:
+            raise AssertionError(f"train CLI: the stripped checkpoint predicts other {differ}")
+        del models, preds
+        eval_cli.main(["--cfg_file", EVAL_YAML, "--ckpt", str(stripped), "--output_dir",
+                       str(tmp / "deploy_eval"), "--set", *sets])
+        with open(tmp / "deploy_eval" / "result.pkl", "rb") as f:
+            again = pickle.load(f)
+        same = len(again) == len(full) and all(
+            a["frame_id"] == b["frame_id"] and all(np.array_equal(a[k], b[k]) for k in
+                                                   ("boxes_lidar", "score", "name", "pred_labels"))
+            for a, b in zip(again, full))
+        if not same:
+            raise AssertionError("train CLI: the stripped checkpoint's result.pkl differs from "
+                                 "the full checkpoint's")
+        n_deploy = sum(len(a["score"]) for a in again)
+
+        # weighted box fusion on the card: the deploy result.pkl (it may hold
+        # no box), and, as a detection file of well-formed boxes, the
+        # sequence's labelled boxes with seeded scores, given twice so that
+        # every box has an exact twin. The boxes a randomly weighted model
+        # decodes are no stand-in: a 0.03 m wide sliver 100 km long has an f32
+        # rotated IoU with itself near 0.06, and fusion (the JAX package's
+        # arithmetic) leaves it out of its own cluster
+        rng = np.random.default_rng(0)
+        gt_annos = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, False,
+                                 str(tmp)).collect_gt_annos()
+        labelled = [{"frame_id": g["frame_id"], "name": g["name"],
+                     "boxes_lidar": g["gt_boxes_lidar"].astype(np.float32),
+                     "score": rng.uniform(0.1, 1.0, len(g["name"])).astype(np.float32)}
+                    for g in gt_annos]
+        with open(tmp / "labelled.pkl", "wb") as f:
+            pickle.dump(labelled, f)
+        n_in = sum(len(a["score"]) for a in labelled)
+        fused_on = []
+        wbf = nms.weighted_box_fusion
+
+        def recorded_wbf(*args, **kwargs):
+            out = wbf(*args, **kwargs)
+            fused_on.append({t.device.type for t in out})
+            return out
+        nms.weighted_box_fusion = recorded_wbf
+        inputs = [tmp / "deploy_eval" / "result.pkl"] + [tmp / "labelled.pkl"] * 2
+        try:
+            t1 = time.perf_counter()
+            merged = merge_detections.main([str(tmp / "merged.pkl"), *map(str, inputs)])
+            merge_s = time.perf_counter() - t1
+        finally:
+            nms.weighted_box_fusion = wbf
+        with_boxes = sum(1 for a, b in zip(again, labelled) if len(a["score"]) + len(b["score"]))
+        if len(fused_on) != with_boxes or any(d != {"cuda"} for d in fused_on):
+            raise AssertionError(f"merge_detections fused on {fused_on}, want cuda for each of "
+                                 f"the {with_boxes} frames with boxes")
+        for m, a, b in zip(merged, again, labelled):
+            if len(m["score"]) == 0:
+                continue
+            boxes = np.concatenate([a["boxes_lidar"].reshape(-1, 7), b["boxes_lidar"]])
+            d = np.abs(m["boxes_lidar"][:, None, :] - boxes[None, :, :])
+            d[..., 6] = np.abs((d[..., 6] + np.pi) % (2 * np.pi) - np.pi)
+            if not (d.max(-1).min(-1) <= 1e-5).all():
+                raise AssertionError(f"merge_detections: a fused box of {m['frame_id']} is no "
+                                     f"survivor of the input (off by {d.max(-1).min(-1).max()})")
+        n_merged = sum(len(m["score"]) for m in merged)
+        if n_merged > n_deploy + n_in or n_merged < 1:
+            raise AssertionError(f"merge_detections kept {n_merged} boxes of {n_deploy} + 2 x "
+                                 f"{n_in} that pair")
+
+    print(f"train CLI ({card}): resume bit-equal; the stripped checkpoint's predict outputs and "
+          f"result.pkl ({n_deploy} detections) equal the full one's; merge_detections fused "
+          f"them with 2 x {n_in} labelled boxes on the card in "
+          f"{merge_s:.2f} s into {n_merged}", flush=True)
+    print(f"train CLI phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    src1, src2 = "cpd_tpu_torch/csrc/gather_gemm.cu", "cpd_tpu_torch/csrc/gather_gemm_dw.cu"
+    return [
+        kernel_entry("gather_gemm", "train CLI, batch 4", src1, "cpd_tpu/ops/pallas_conv.py:77",
+                     fwd, *checks["forward"]),
+        kernel_entry("gather_gemm (dX)", "train CLI, batch 4", src1,
+                     "cpd_tpu/ops/pallas_conv.py:77", dx, *checks["dx"]),
+        kernel_entry("gather_gemm_dw", "train CLI, batch 4", src2,
+                     "cpd_tpu/ops/pallas_conv.py:130", a2, *checks["dw"]),
+    ]
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     parser.add_argument("--determinism", type=int, metavar="RUNS",
-                        help="run only phase 12 (after the build), with RUNS runs of the step "
+                        help="run only phase 13 (after the build), with RUNS runs of the step "
                              "under the scope (at least 2)")
     parser.add_argument("--no-cudnn", action="store_true",
                         help="with --determinism: the scope turns cuDNN off instead")
@@ -1453,6 +1850,8 @@ def main():
     small_input_check()
     print(f"predict phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels.append(eval_cli_phase(dev, card))
+    torch.cuda.empty_cache()
+    kernels += train_cli_phase(dev, card)
     torch.cuda.empty_cache()
 
     kernels += training_phase(dev)

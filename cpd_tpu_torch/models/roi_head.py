@@ -317,8 +317,10 @@ class VoxelRCNNProtoHead(nn.Module):
                  hard_bg_ratio: float = 0.1, cls_score_type: str = "roi_iou",
                  direction_min: float = 0.4, direction_max: float = 0.8,
                  enable_hard_sampling: bool = False, hard_sampling_thresh=0.3,
-                 hard_sampling_ratio=0.3, mlp_channels: int = 32):
+                 hard_sampling_ratio=0.3, mlp_channels: int = 32,
+                 debug_forensics: bool = False):
         super().__init__()
+        self.debug_forensics = debug_forensics
         self.scale_grids = scale_grids
         self.num_rois = num_rois
         self.roi_per_image = roi_per_image
@@ -398,6 +400,30 @@ class VoxelRCNNProtoHead(nn.Module):
             out["batch_cls_preds"] = rcnn_cls[..., None]
         return out
 
+    def _nonfinite_counts(self, out, t, rois, reg_targets, reg_mask, css):
+        """NaN forensics (``debug_forensics``, off by default): the count of
+        non-finite entries in each input of the regression loss, so that a
+        step the trainer's guard skipped can be traced to its source."""
+        mrow = (reg_mask > 0)[..., None]
+        reg = out["rcnn_reg"]
+        decoded = decode_roi_boxes(rois, reg, self.coder)
+        corner = loss_utils.corner_loss_lidar(
+            decoded.flatten(0, 1), t["gt_of_rois"][..., :7].flatten(0, 1), reg_mask.flatten())
+        bad = lambda x: (~torch.isfinite(x)).sum()  # noqa: E731
+        return {
+            "nonfinite_reg_targets": (~torch.isfinite(reg_targets) & mrow).sum(),
+            "nonfinite_reg_pred": (~torch.isfinite(reg) & mrow).sum(),
+            "nonfinite_rois": bad(rois),
+            "nonfinite_gt_of_rois": bad(t["gt_of_rois"]),
+            "nonfinite_css": bad(css),
+            "nonfinite_reg_mask": bad(reg_mask),
+            "nonfinite_reg_targets_any": bad(reg_targets),
+            "nonfinite_smoothl1": bad(loss_utils.weighted_smooth_l1_loss(reg, reg_targets,
+                                                                        reg_mask)),
+            "nonfinite_decoded": bad(decoded),
+            "nonfinite_corner": bad(corner),
+        }
+
     def get_loss(self, out, batch):
         """CSS-weighted rcnn losses + the proto block. ``batch["cur_it"]`` (a
         number or a 0-d tensor; default: the end of the ramp) drives the
@@ -431,6 +457,8 @@ class VoxelRCNNProtoHead(nn.Module):
         reg0 = reg_loss_fn(out["rcnn_reg"])
         total = cls0 + reg0
         tb = {"rcnn_cls0": cls0, "rcnn_reg0": reg0}
+        if self.debug_forensics:
+            tb.update(self._nonfinite_counts(out, t, rois, reg_targets, reg_mask, css))
         if "rcnn_cls_proto" in out:
             cls1 = cls_loss_fn(out["rcnn_cls_proto"])
             reg1 = reg_loss_fn(out["rcnn_reg_proto"])

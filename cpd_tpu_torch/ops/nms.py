@@ -1,4 +1,5 @@
-"""Rotated BEV NMS with fixed-size outputs (port of cpd_tpu/ops/nms.py::nms_bev).
+"""Rotated BEV NMS with fixed-size outputs and weighted box fusion (port of
+cpd_tpu/ops/nms.py::nms_bev and ::weighted_box_fusion).
 
 Ties in the top-k selections go lowest index first, as ``jax.lax.top_k``
 orders them: every top-k here is a stable descending sort, sliced."""
@@ -60,3 +61,32 @@ def nms_bev(boxes, scores, thresh, pre_max_size=1024, post_max_size=256, valid=N
     keep_scores = torch.where(keep, top_scores, -math.inf)
     sel_scores, sel = top_k(keep_scores, min(post_max_size, k))
     return order[sel], torch.isfinite(sel_scores)
+
+
+def weighted_box_fusion(boxes, scores, labels, iou_thresh=0.7, valid=None):
+    """Weighted Box Fusion with a circular-mean yaw (port of
+    cpd_tpu/ops/nms.py::weighted_box_fusion; parity: model_nms_utils.py:14
+    ``compute_WBF``). Greedy rotated NMS at ``iou_thresh`` picks the
+    survivors; every valid box of a survivor's label whose rotated IoU with
+    it is at least ``iou_thresh`` joins its cluster, and the survivor becomes
+    the score-weighted mean of its cluster (yaw through the mean of sin and
+    cos). Static shapes: boxes (N, 7+), scores (N,), labels (N,) ->
+    (fused (N, 7), scores (N,), labels (N,), keep_mask (N,)), the survivors
+    first in score order, zeros where ``keep_mask`` is False."""
+    n = boxes.shape[0]
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=boxes.device)
+    keep_idx, keep_mask = nms_bev(boxes, scores, thresh=iou_thresh, pre_max_size=n,
+                                  post_max_size=n, valid=valid)
+    iou = boxes_iou_bev(boxes[keep_idx][:, :7], boxes[:, :7])  # (K, N)
+    same_label = labels[keep_idx][:, None] == labels[None, :]
+    member = (iou >= iou_thresh) & valid[None, :] & keep_mask[:, None] & same_label
+    w = torch.where(member, scores[None, :], 0.0)
+    wn = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-6)
+    fused_xyzdim = wn @ boxes[:, :6]
+    fused_yaw = torch.atan2(wn @ torch.sin(boxes[:, 6]), wn @ torch.cos(boxes[:, 6]))
+    fused = torch.cat([fused_xyzdim, fused_yaw[:, None]], dim=-1)
+    fused = torch.where(keep_mask[:, None], fused, 0.0)
+    fused_scores = torch.where(keep_mask, scores[keep_idx], 0.0)
+    fused_labels = torch.where(keep_mask, labels[keep_idx], 0)
+    return fused, fused_scores, fused_labels, keep_mask

@@ -1,11 +1,14 @@
-"""The adam_onecycle trainer on one device (port of cpd_tpu/parallel/trainer.py).
+"""The trainer on one device (port of cpd_tpu/parallel/trainer.py).
 
-The CPD optimizer: gradients clipped to a global norm of 32, then AdamW with
-decoupled weight decay, the learning rate on a cosine one-cycle schedule and
-Adam's b1 on the mirrored momentum schedule (high -> low -> high). A train
-step is forward + loss (``VoxelRCNN.loss_step``), backward, the non-finite
-guard, clip and update. Data-parallel training over several cards (gradient
-all-reduce, synchronised batch norm) is not ported.
+The CPD optimizer, adam_onecycle: gradients clipped to a global norm of 32,
+then AdamW with decoupled weight decay, the learning rate on a cosine
+one-cycle schedule and Adam's b1 on the mirrored momentum schedule (high ->
+low -> high); ``adam`` and ``sgd`` clip the same way. A train step is
+forward + loss (``VoxelRCNN.loss_step``), backward, the non-finite guard,
+clip and update; ``step_generator`` seeds the step's random numbers (RoI
+sampling, dropout) from the run's seed and the step counter. Data-parallel
+training over several cards (gradient all-reduce, synchronised batch norm)
+is not ported.
 
 ``init_state`` places the model with ``utils.device.place``: on the CUDA
 card unless the caller asks for another device; with no card and no such
@@ -20,6 +23,7 @@ import dataclasses
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -69,31 +73,20 @@ def onecycle_momentum_schedule(total_steps: int, moms=(0.95, 0.85), pct_start: f
     return sched
 
 
-class AdamOneCycle(torch.optim.Optimizer):
-    """Clip by global norm, then AdamW (decoupled weight decay, bias-corrected
-    moments) with the learning rate and b1 read from schedules of its own
-    update count:
+class ClippedOptimizer(torch.optim.Optimizer):
+    """Gradients clipped to a global norm, then the update rule of a subclass
+    (``_update``), as optax's ``chain(clip_by_global_norm(clip), inner)``.
+    ``step`` returns the gradient norm before clipping; a non-finite norm
+    leaves parameters, optimizer state and update count as they were (the
+    skipped update) and zeroes the gradients. ``state_dict`` carries the
+    update count, which the schedules read."""
 
-        g    = grad * min(1, clip / |grads|)
-        mu   = b1 mu + (1 - b1) g;   nu = b2 nu + (1 - b2) g^2
-        p   -= lr * (mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps) + wd * p)
-
-    with lr = lr_schedule(t - 1), b1 = b1_schedule(t - 1) and t the count of
-    updates including this one. ``step`` returns the gradient norm before
-    clipping; a non-finite norm leaves parameters, moments and count as they
-    were (the skipped update) and zeroes the gradients."""
-
-    def __init__(self, params, lr_schedule, b1_schedule, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 1e-5, grad_norm_clip: float = 32.0):
-        super().__init__(params, dict(b2=b2, eps=eps, weight_decay=weight_decay))
-        self.lr_schedule = lr_schedule
-        self.b1_schedule = b1_schedule
+    def __init__(self, params, defaults, grad_norm_clip: float = 32.0):
+        super().__init__(params, defaults)
         self.grad_norm_clip = grad_norm_clip
         self.count = 0
 
     def state_dict(self):
-        """The torch optimizer state (moments, hyperparameters) and the update
-        count that the schedules read."""
         out = super().state_dict()
         out["count"] = self.count
         return out
@@ -113,7 +106,7 @@ class AdamOneCycle(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
-            raise ValueError("AdamOneCycle takes no closure")
+            raise ValueError(f"{type(self).__name__} takes no closure")
         gnorm = self.global_grad_norm()
         if not bool(torch.isfinite(gnorm)):
             for g in self.param_groups:
@@ -121,50 +114,101 @@ class AdamOneCycle(torch.optim.Optimizer):
                     if p.grad is not None:
                         p.grad.zero_()
             return gnorm
-        lr = self.lr_schedule(self.count)
-        b1 = self.b1_schedule(self.count)
         self.count += 1
         scale = torch.where(gnorm < self.grad_norm_clip, torch.ones_like(gnorm),
                             self.grad_norm_clip / gnorm)
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
-            if not params:
-                continue
-            b2, eps, wd = group["b2"], group["eps"], group["weight_decay"]
-            for p in params:
-                if not self.state[p]:
-                    self.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
-            grads = torch._foreach_mul([p.grad for p in params], scale)
-            mus = [self.state[p]["mu"] for p in params]
-            nus = [self.state[p]["nu"] for p in params]
-            torch._foreach_mul_(mus, b1)
-            torch._foreach_add_(mus, grads, alpha=1.0 - b1)
-            torch._foreach_mul_(nus, b2)
-            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
-            denom = torch._foreach_div(nus, 1.0 - b2 ** self.count)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, eps)
-            update = torch._foreach_div(mus, 1.0 - b1 ** self.count)
-            torch._foreach_div_(update, denom)
-            torch._foreach_add_(update, params, alpha=wd)
-            torch._foreach_add_(params, update, alpha=-lr)
+            if params:
+                self._update(group, params, torch._foreach_mul([p.grad for p in params], scale))
         return gnorm
 
+    def _update(self, group, params, grads):
+        """Apply update number ``self.count`` to ``params`` from the clipped
+        ``grads``."""
+        raise NotImplementedError
 
-def build_optimizer(params, opt_cfg: Dict, total_steps: int) -> AdamOneCycle:
-    """adam_onecycle (the CPD default) from the JAX package's config keys:
-    LR, WEIGHT_DECAY, GRAD_NORM_CLIP, PCT_START, DIV_FACTOR, MOMS."""
+
+class ClippedAdamW(ClippedOptimizer):
+    """AdamW (decoupled weight decay, bias-corrected moments) with the
+    learning rate and b1 read from schedules of the update count:
+
+        g    = grad * min(1, clip / |grads|)
+        mu   = b1 mu + (1 - b1) g;   nu = b2 nu + (1 - b2) g^2
+        p   -= lr * (mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps) + wd * p)
+
+    with lr = lr_schedule(t - 1), b1 = b1_schedule(t - 1) and t the count of
+    updates including this one."""
+
+    def __init__(self, params, lr_schedule, b1_schedule, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-5, grad_norm_clip: float = 32.0):
+        super().__init__(params, dict(b2=b2, eps=eps, weight_decay=weight_decay), grad_norm_clip)
+        self.lr_schedule = lr_schedule
+        self.b1_schedule = b1_schedule
+
+    def _update(self, group, params, grads):
+        t = self.count
+        lr, b1 = self.lr_schedule(t - 1), self.b1_schedule(t - 1)
+        b2, eps, wd = group["b2"], group["eps"], group["weight_decay"]
+        for p in params:
+            if not self.state[p]:
+                self.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+        mus = [self.state[p]["mu"] for p in params]
+        nus = [self.state[p]["nu"] for p in params]
+        torch._foreach_mul_(mus, b1)
+        torch._foreach_add_(mus, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
+        denom = torch._foreach_div(nus, 1.0 - b2 ** t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        update = torch._foreach_div(mus, 1.0 - b1 ** t)
+        torch._foreach_div_(update, denom)
+        torch._foreach_add_(update, params, alpha=wd)
+        torch._foreach_add_(params, update, alpha=-lr)
+
+
+class ClippedSGD(ClippedOptimizer):
+    """SGD with heavy-ball momentum and no weight decay, as ``optax.sgd``:
+    ``m = g + momentum * m;  p -= lr * m`` on the clipped gradients."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9, grad_norm_clip: float = 32.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum), grad_norm_clip)
+
+    def _update(self, group, params, grads):
+        for p in params:
+            if not self.state[p]:
+                self.state[p] = {"trace": torch.zeros_like(p)}
+        traces = [self.state[p]["trace"] for p in params]
+        torch._foreach_mul_(traces, group["momentum"])
+        torch._foreach_add_(traces, grads)
+        torch._foreach_add_(params, traces, alpha=-group["lr"])
+
+
+def build_optimizer(params, opt_cfg: Dict, total_steps: int) -> ClippedOptimizer:
+    """The JAX package's three optimizers from the same config keys, each
+    after a clip to GRAD_NORM_CLIP: adam_onecycle (the CPD default: AdamW
+    with the one-cycle rate and b1 from LR, PCT_START, DIV_FACTOR, MOMS),
+    adam (AdamW at the constant LR) and sgd (LR, MOMENTUM, no decay); both
+    AdamWs decay by WEIGHT_DECAY. Another name raises a KeyError."""
     name = opt_cfg.get("OPTIMIZER", "adam_onecycle")
-    if name != "adam_onecycle":
-        raise KeyError(f"optimizer {name!r} is not ported (adam_onecycle is)")
-    pct = float(opt_cfg.get("PCT_START", 0.4))
-    return AdamOneCycle(
-        params,
-        cosine_onecycle_schedule(total_steps, float(opt_cfg.get("LR", 0.003)), pct,
-                                 float(opt_cfg.get("DIV_FACTOR", 10)), 1000.0),
-        onecycle_momentum_schedule(total_steps, tuple(opt_cfg.get("MOMS", (0.95, 0.85))), pct),
-        weight_decay=float(opt_cfg.get("WEIGHT_DECAY", 1e-5)),
-        grad_norm_clip=float(opt_cfg.get("GRAD_NORM_CLIP", 32)))
+    lr = float(opt_cfg.get("LR", 0.003))
+    wd = float(opt_cfg.get("WEIGHT_DECAY", 1e-5))
+    clip = float(opt_cfg.get("GRAD_NORM_CLIP", 32))
+    if name == "adam_onecycle":
+        pct = float(opt_cfg.get("PCT_START", 0.4))
+        return ClippedAdamW(
+            params,
+            cosine_onecycle_schedule(total_steps, lr, pct, float(opt_cfg.get("DIV_FACTOR", 10)),
+                                     1000.0),
+            onecycle_momentum_schedule(total_steps, tuple(opt_cfg.get("MOMS", (0.95, 0.85))), pct),
+            weight_decay=wd, grad_norm_clip=clip)
+    if name == "adam":
+        return ClippedAdamW(params, lambda t: lr, lambda t: 0.9, weight_decay=wd,
+                            grad_norm_clip=clip)
+    if name == "sgd":
+        return ClippedSGD(params, lr, float(opt_cfg.get("MOMENTUM", 0.9)), grad_norm_clip=clip)
+    raise KeyError(f"unknown optimizer {name}")
 
 
 @dataclasses.dataclass
@@ -175,7 +219,7 @@ class TrainState:
 
     step: int
     model: nn.Module
-    optimizer: AdamOneCycle
+    optimizer: ClippedOptimizer
 
 
 def init_state(model: nn.Module, opt_cfg: Dict, total_steps: int, device=None) -> TrainState:
@@ -183,6 +227,15 @@ def init_state(model: nn.Module, opt_cfg: Dict, total_steps: int, device=None) -
     optimizer."""
     model = place(model, device).train()
     return TrainState(0, model, build_optimizer(model.parameters(), opt_cfg, total_steps))
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one train step's random numbers (RoI-sampling
+    uniforms, dropout masks) on ``device``, seeded from ``(seed, step)``
+    alone: a run resumed at step n draws what an unbroken run draws there
+    (the JAX trainer folds the step into one key drawn from the seed)."""
+    state = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
 
 
 @contextlib.contextmanager

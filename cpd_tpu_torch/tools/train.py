@@ -1,6 +1,30 @@
-"""Training CLI helpers (port of tools/train.py). Only ``device_batch``, which
-the evaluation CLI shares, is ported; the training CLI itself is not yet."""
+"""Training CLI (port of tools/train.py; parity with reference tools/train.py
+flags and flow).
+
+    python -m cpd_tpu_torch.tools.train --cfg_file tools/cfgs/models/voxel_rcnn_cproto_center.yaml \
+        [--device cpu] [--set KEY VALUE ...]
+
+Flow: config -> training dataloader -> ``build_network`` with weights drawn
+from ``--seed`` -> optimizer (adam_onecycle, adam or sgd) -> ``--pretrained_model``
+-> ``--ckpt`` or auto-resume from ``<out>/ckpt`` -> the epoch loop on one
+device (``device_batch``, then ``make_train_step``) -> a checkpoint per epoch
+with rotation -> optionally the evaluation CLI on the last checkpoints.
+Writes ``log_train.txt``, ``metrics.jsonl`` and ``ckpt/`` under
+``--output_dir`` (default ``output/<cfg TAG>/<extra_tag>``). The model runs
+on the CUDA card; ``--device cpu`` asks for the CPU, and without a card and
+without it the CLI raises. The config is read into a fresh ConfigDict on
+every call (the JAX CLI merges into the global ``cfg``).
+
+Randomness is a function of the seed and the position in the run, so a run
+stopped after an epoch and resumed gives the bits of an unbroken one: the
+loader's order and the augmentations follow (seed, epoch, sample index), a
+step's RoI sampling and dropout ``parallel.step_generator(seed, step)``.
+"""
 from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -8,6 +32,30 @@ import torch
 # the arrays of a host batch that the model reads; metadata stays on the host
 DEVICE_KEYS = ("points", "points_valid", "points1", "points1_valid",
                "gt_boxes", "gt_valid", "css_score")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--cfg_file", required=True)
+    p.add_argument("--batch_size", type=int, default=None, help="batch size")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--workers", type=int, default=4)
+    p.add_argument("--extra_tag", default="default")
+    p.add_argument("--ckpt", default=None)
+    p.add_argument("--pretrained_model", default=None)
+    p.add_argument("--fix_random_seed", action="store_true")
+    p.add_argument("--seed", type=int, default=666)
+    p.add_argument("--max_ckpt_save_num", type=int, default=30)
+    p.add_argument("--output_dir", default=None)
+    p.add_argument("--debug_steps", type=int, default=0,
+                   help="stop after N optimizer steps (smoke runs)")
+    p.add_argument("--log_every", type=int, default=20)
+    p.add_argument("--eval_after", type=int, default=0,
+                   help="evaluate the last N checkpoints after training (reference repeat_eval_ckpt)")
+    p.add_argument("--device", default=None,
+                   help="torch device to run on (default: the CUDA card)")
+    p.add_argument("--set", dest="set_cfgs", nargs=argparse.REMAINDER, default=None)
+    return p.parse_args(argv)
 
 
 def device_batch(batch, device):
@@ -24,3 +72,130 @@ def device_batch(batch, device):
             t = t.pin_memory()
         out[k] = t.to(device, non_blocking=True)
     return out
+
+
+def main(argv=None, dataset=None):
+    """Run the CLI on ``argv``; ``dataset`` replaces the one the config
+    names. Returns the final ``parallel.TrainState``."""
+    args = parse_args(argv)
+
+    from ..config import ConfigDict, cfg_from_list, cfg_from_yaml_file
+    from ..datasets import build_dataloader
+    from ..models import build_network
+    from ..parallel import init_state, make_train_step, step_generator
+    from ..utils.checkpoint import (auto_resume, list_checkpoints, load_checkpoint,
+                                    load_params_from_file, save_checkpoint)
+    from ..utils.common import MetricsLogger, PhaseTimer, create_logger, set_random_seed
+    from ..utils.device import resolve_device
+    from ..utils.weights import seeded_state_dict
+
+    device = resolve_device(args.device)
+    cfg = cfg_from_yaml_file(args.cfg_file, ConfigDict())
+    if args.set_cfgs:
+        cfg_from_list(args.set_cfgs, cfg)
+
+    batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    epochs = args.epochs or int(cfg.OPTIMIZATION.NUM_EPOCHS)
+
+    out_dir = Path(args.output_dir or f"output/{cfg.TAG}/{args.extra_tag}")
+    ckpt_dir = out_dir / "ckpt"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logger = create_logger(out_dir / "log_train.txt")
+    logger.info(f"device: {device}  batch: {batch_size}")
+    if args.fix_random_seed:
+        set_random_seed(args.seed)
+
+    train_set, train_loader, _ = build_dataloader(
+        cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+        root_path=cfg.DATA_CONFIG.get("DATA_PATH"), workers=args.workers,
+        training=True, seed=args.seed, dataset=dataset,
+    )
+    logger.info(f"train samples: {len(train_set)}  steps/epoch: {len(train_loader)}")
+    if len(train_set) == 0:
+        raise SystemExit(
+            f"dataset '{cfg.DATA_CONFIG.get('DATASET')}' is empty -- no processed "
+            f"data under DATA_PATH={cfg.DATA_CONFIG.get('DATA_PATH')!r}. Build infos "
+            "first or pass a dataset with samples."
+        )
+
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+    model.load_state_dict(seeded_state_dict(model, args.seed), strict=True)
+    total_steps = max(len(train_loader) * epochs, 1)
+    state = init_state(model, cfg.OPTIMIZATION, total_steps, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info(f"model params: {n_params / 1e6:.2f}M  optimizer: "
+                f"{cfg.OPTIMIZATION.get('OPTIMIZER', 'adam_onecycle')}  total steps: {total_steps}")
+
+    if args.pretrained_model:
+        state = load_params_from_file(state, args.pretrained_model, logger)
+    if args.ckpt:
+        payload = load_checkpoint(args.ckpt, state)
+        state.step = int(payload["it"])
+        start_epoch = int(payload["epoch"]) + 1
+    else:
+        state, start_epoch = auto_resume(ckpt_dir, state)
+        if start_epoch:
+            logger.info(f"auto-resumed from epoch {start_epoch - 1}")
+
+    train_step = make_train_step()
+    metrics = MetricsLogger(out_dir)
+    timer = PhaseTimer()
+    stop = False
+    for epoch in range(start_epoch, epochs):
+        train_loader.set_epoch(epoch)
+        if hasattr(train_set, "set_epoch"):
+            train_set.set_epoch(epoch)
+        t_epoch = time.time()
+        steps = 0
+        batches = iter(train_loader)
+        try:
+            for _ in range(len(train_loader)):
+                with timer.phase("data"):
+                    batch = next(batches)
+                with timer.phase("h2d"):
+                    db = device_batch(batch, device)
+                with timer.phase("step"):
+                    state, tb = train_step(state, db, step_generator(args.seed, state.step, device))
+                steps += 1
+                it = state.step
+                if it % args.log_every == 0 or args.debug_steps:
+                    tb_host = {k: float(v) for k, v in tb.items()}
+                    logger.info(
+                        f"epoch {epoch} it {it} " +
+                        " ".join(f"{k}={v:.4f}" for k, v in sorted(tb_host.items()))
+                    )
+                    metrics.log(it, tb_host)
+                if args.debug_steps and it >= args.debug_steps:
+                    stop = True
+                    break
+        finally:
+            batches.close()
+        save_checkpoint(ckpt_dir, state, epoch, args.max_ckpt_save_num)
+        dt = time.time() - t_epoch
+        logger.info(
+            f"epoch {epoch} done in {dt:.1f}s ({steps} steps, {steps / max(dt, 1e-9):.3f} "
+            f"steps/s); phase means: { {k: round(v, 6) for k, v in timer.summary().items()} }"
+        )
+        if stop:
+            break
+    metrics.close()
+    logger.info("training complete")
+    if args.eval_after:
+        # reference behaviour: evaluate the last N epochs' checkpoints
+        # (train.py:181-195 -> repeat_eval_ckpt), with this run's overrides
+        from . import test as test_cli
+
+        for ep, path in list_checkpoints(ckpt_dir)[-args.eval_after:]:
+            create_logger(out_dir / "log_train.txt").info(f"post-train eval of epoch {ep}")
+            test_cli.main([
+                "--cfg_file", args.cfg_file,
+                "--output_dir", str(out_dir / f"eval_epoch_{ep}"),
+                "--ckpt", str(path),
+                "--workers", str(args.workers),
+                "--device", str(device),
+            ] + (["--set", *args.set_cfgs] if args.set_cfgs else []))
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,14 @@
-"""Logging and seeding (port of cpd_tpu/utils/common.py; parity:
-cpd/utils/common_utils.py). The JAX package's compile-cache switch has no
-counterpart here: it turns on JAX's persistent compilation cache."""
+"""Logging, seeding, metrics and phase timing (port of
+cpd_tpu/utils/common.py; parity: cpd/utils/common_utils.py). The JAX
+package's compile-cache switch has no counterpart here: it turns on JAX's
+persistent compilation cache."""
 from __future__ import annotations
 
+import contextlib
+import json
 import logging
 import random
+import time
 from pathlib import Path
 
 import numpy as np
@@ -42,3 +46,60 @@ def set_random_seed(seed: int = 666):
     np.random.seed(seed)
     torch.manual_seed(seed)
     return seed
+
+
+class MetricsLogger:
+    """Structured metrics: ``metrics.jsonl`` in ``out_dir`` always, one
+    record ``{"step", "time", <metrics>}`` a call; TensorBoard events under
+    ``out_dir/tensorboard`` too where ``torch.utils.tensorboard`` imports
+    (the JAX package writes them through ``tf.summary`` where TensorFlow
+    imports)."""
+
+    def __init__(self, out_dir, enable_tb: bool = True):
+        self.out_dir = Path(out_dir)
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.jsonl = open(self.out_dir / "metrics.jsonl", "a")
+        self.tb = None
+        if enable_tb:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                self.tb = SummaryWriter(str(self.out_dir / "tensorboard"))
+
+    def log(self, step: int, metrics: dict):
+        rec = {"step": int(step), "time": time.time()}
+        rec.update({k: float(v) for k, v in metrics.items()})
+        self.jsonl.write(json.dumps(rec) + "\n")
+        self.jsonl.flush()
+        if self.tb is not None:
+            for k, v in metrics.items():
+                self.tb.add_scalar(k, float(v), int(step))
+
+    def close(self):
+        self.jsonl.close()
+        if self.tb is not None:
+            self.tb.close()
+
+
+class PhaseTimer:
+    """Host seconds per named phase: ``with timer.phase("data"): ...``;
+    ``summary()`` gives the mean seconds of each phase. Work the card has
+    not finished when a phase ends is not in it."""
+
+    def __init__(self):
+        self.totals = {}
+        self.counts = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t0
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def summary(self):
+        return {k: self.totals[k] / max(self.counts[k], 1) for k in self.totals}

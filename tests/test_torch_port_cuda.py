@@ -735,3 +735,40 @@ def test_eval_cli_runs_on_the_card_by_default(cuda, tmp_path):
         assert a["frame_id"] == b["frame_id"]
         assert np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
         assert len(a["score"]) > 0
+
+
+@pytest.mark.cuda
+def test_train_cli_runs_on_the_card_by_default(cuda, tmp_path):
+    """``cpd_tpu_torch.tools.train.main`` without ``--device`` trains on the
+    card: the shipped yaml cut to a 24 m square and 2 frames of 20k points
+    with prototype banks, batch 1, one epoch of 2 steps; every step launches
+    A1 35 + 33 times and A2 35 times, its losses are finite with
+    ``proto_loss``, and the epoch's checkpoint is written."""
+    import json
+
+    from cpd_tpu_torch.tools import train as train_cli
+    from cpd_tpu_torch.utils.synthetic import write_waymo_sequence
+
+    yaml_file = "tools/cfgs/models/voxel_rcnn_cproto_center.yaml"
+    sets = ["DATA_CONFIG.DATA_PATH", str(tmp_path), "DATA_CONFIG.SAMPLED_INTERVAL.train", "1",
+            "DATA_CONFIG.POINT_CLOUD_RANGE", "[-12.0,-12.0,-2.0,12.0,12.0,4.0]",
+            "DATA_CONFIG.POINT_CAP", "20000"]
+    frames = []
+    for i in range(2):
+        pts, _ = make_lidar_frame(np.random.default_rng(i), 60_000)
+        frames.append(pts[(np.abs(pts[:, 0]) < 12) & (np.abs(pts[:, 1]) < 12)])
+    write_waymo_sequence(tmp_path, "segment-0000", frames, n_boxes=4, r_max=11.0, protos=True)
+    gg.gather_gemm.launches = gg.gather_gemm_dw.launches = 0
+    state = train_cli.main(["--cfg_file", yaml_file, "--batch_size", "1", "--epochs", "1",
+                            "--log_every", "1", "--output_dir", str(tmp_path / "out"),
+                            "--set", *sets])
+    torch.cuda.synchronize()
+    assert state.step == 2 and next(state.model.parameters()).device.type == "cuda"
+    assert (gg.gather_gemm.launches, gg.gather_gemm_dw.launches) == (2 * (35 + 33), 2 * 35)
+    with open(tmp_path / "out" / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["step"] for r in recs] == [1, 2]
+    for r in recs:
+        assert "proto_loss" in r and all(np.isfinite(v) for v in r.values())
+        assert r["skipped_nonfinite"] == 0.0
+    assert (tmp_path / "out" / "ckpt" / "checkpoint_epoch_0.pth").exists()

@@ -375,14 +375,21 @@ def _head_outputs(rng, b=2, r=9, feat=16):
     return outs, rois, targets
 
 
-@pytest.mark.parametrize("cur_it", [0.0, 1200.0, None])
-def test_proto_head_get_loss_matches(cur_it):
+@pytest.mark.parametrize("cur_it,forensics", [(0.0, False), (1200.0, False), (None, False),
+                                               (1200.0, True)],
+                         ids=["0.0", "1200.0", "None", "forensics"])
+def test_proto_head_get_loss_matches(cur_it, forensics):
     """Every entry of tb and the gradients w.r.t. the head outputs, with and
-    without the proto block's ramp."""
+    without the proto block's ramp. With ``debug_forensics`` and one NaN in
+    the regression prediction of a foreground row, the ``nonfinite_*``
+    counts equal JAX's and the losses are NaN where JAX's are."""
     outs, rois, targets = _head_outputs(np.random.default_rng(7))
-    jm = jroi.VoxelRCNNProtoHead(num_rois=9, roi_per_image=9)
+    if forensics:
+        live = np.argwhere(targets["reg_valid_mask"] & targets["valid"])[0]
+        outs["rcnn_reg"][live[0], live[1], 2] = np.nan
+    jm = jroi.VoxelRCNNProtoHead(num_rois=9, roi_per_image=9, debug_forensics=forensics)
     pm = roi_head.VoxelRCNNProtoHead({}, {"x_conv3": 8, "x_conv4": 8}, num_rois=9,
-                                     roi_per_image=9, mm=True)
+                                     roi_per_image=9, mm=True, debug_forensics=forensics)
     jbatch = {} if cur_it is None else {"cur_it": jnp.asarray(cur_it, jnp.float32)}
     pbatch = {} if cur_it is None else {"cur_it": cur_it}
     jtargets = {k: jnp.asarray(v) for k, v in targets.items()}
@@ -395,8 +402,17 @@ def test_proto_head_get_loss_matches(cur_it):
     po = {k: _t(v).requires_grad_() for k, v in outs.items()}
     ptotal, ptb = pm.get_loss(dict(po, rois=_t(rois),
                                    roi_targets={k: _t(v) for k, v in targets.items()}), pbatch)
-    ptotal.backward()
     assert set(ptb) == set(jtb) and "proto_loss" in ptb
+    if forensics:
+        counts = sorted(k for k in jtb if k.startswith("nonfinite_"))
+        assert len(counts) == 10 and int(jtb["nonfinite_reg_pred"]) == 1
+        for k in counts:
+            assert int(ptb[k]) == int(jtb[k]), k
+        for k in jtb:
+            np.testing.assert_allclose(float(ptb[k]), float(jtb[k]), **TOL, err_msg=k)
+        assert np.isnan(float(ptb["rcnn_reg0"])) and np.isnan(float(ptotal.detach()))
+        return
+    ptotal.backward()
     np.testing.assert_allclose(float(ptotal.detach()), float(jtotal), **TOL)
     for k in jtb:
         np.testing.assert_allclose(float(ptb[k]), float(jtb[k]), **TOL, err_msg=k)

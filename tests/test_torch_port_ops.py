@@ -62,12 +62,14 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'yaml', 'cpd_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 47, names\n"
+        "assert len(names) >= 52, names\n"
         "assert {'cpd_tpu_torch.utils.loss', 'cpd_tpu_torch.parallel.trainer',\n"
         "        'cpd_tpu_torch.ops.cuda_build', 'cpd_tpu_torch.ops.gather_probes',\n"
         "        'cpd_tpu_torch.probes.gather', 'cpd_tpu_torch.config',\n"
         "        'cpd_tpu_torch.utils.yaml_subset', 'cpd_tpu_torch.datasets.waymo_unsupervised',\n"
-        "        'cpd_tpu_torch.evaluation.ap', 'cpd_tpu_torch.tools.test'} <= set(names)\n"
+        "        'cpd_tpu_torch.evaluation.ap', 'cpd_tpu_torch.tools.test',\n"
+        "        'cpd_tpu_torch.tools.train', 'cpd_tpu_torch.tools.strip_checkpoint',\n"
+        "        'cpd_tpu_torch.tools.merge_detections', 'cpd_tpu_torch.utils.common'} <= set(names)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -1,8 +1,9 @@
 """The trainer of the PyTorch port against the JAX package's:
 
-* the optimizer and both schedules against optax, step by step, on the same
-  numpy gradients, over enough steps to pass the schedules' turning point
-  and their end (f32: 1e-6);
+* the optimizers (adam_onecycle, adam, sgd) and both schedules against
+  optax, step by step, on the same numpy gradients, over enough steps to
+  pass the schedules' turning point and their end (f32: 1e-6);
+* ``MetricsLogger`` and ``PhaseTimer`` against the JAX package's;
 * the non-finite guard: a step with a NaN gradient leaves parameters,
   moments and batch-norm statistics as they were and advances the counter;
 * the trainer's device rule, and the port's copy of the tiny training batch.
@@ -81,7 +82,116 @@ def test_optimizer_matches_optax_step_by_step():
     moved = max(float(np.abs(tparams[k].detach().numpy() - params[k]).max()) for k in shapes)
     assert moved > 1e-2
     with pytest.raises(KeyError):
-        trainer.build_optimizer(list(tparams.values()), {"OPTIMIZER": "sgd"}, 10)
+        trainer.build_optimizer(list(tparams.values()), {"OPTIMIZER": "rmsprop"}, 10)
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_adam_and_sgd_match_optax_step_by_step(name):
+    """``adam`` (AdamW at a constant rate, decay 1e-5) and ``sgd`` (momentum
+    0.9, no decay), each after the clip to 32, against the JAX package's
+    ``build_optimizer`` over 5 steps: step 1 is clipped, step 3 has a NaN
+    gradient. The JAX trainer reverts its whole state on a non-finite
+    gradient norm (cpd_tpu/parallel/trainer.py:164-172), so the optax side
+    skips that update; the port's optimizer must leave parameters, moments
+    and count as they were. f32, 1e-6."""
+    rng = np.random.default_rng(1)
+    shapes = {"a": (7, 5), "b": (5,), "c": (3, 4, 2)}
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    cfg = {"OPTIMIZER": name, "LR": 0.01, "WEIGHT_DECAY": 1e-5, "MOMENTUM": 0.9,
+           "GRAD_NORM_CLIP": 32}
+    tx = jtrainer.build_optimizer(cfg, TOTAL_STEPS)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    opt_state = tx.init(jparams)
+    tparams = {k: nn.Parameter(_t(v)) for k, v in params.items()}
+    opt = trainer.build_optimizer(list(tparams.values()), cfg, TOTAL_STEPS)
+    assert isinstance(opt, trainer.ClippedAdamW if name == "adam" else trainer.ClippedSGD)
+    for step in range(5):
+        grads = {k: (rng.normal(size=s) * (30.0 if step == 1 else 0.5)).astype(np.float32)
+                 for k, s in shapes.items()}
+        if step == 3:
+            grads["b"][2] = np.nan
+        jgrads = {k: jnp.asarray(g) for k, g in grads.items()}
+        if np.isfinite(float(optax.global_norm(jgrads))):
+            updates, opt_state = tx.update(jgrads, opt_state, jparams)
+            jparams = optax.apply_updates(jparams, updates)
+        before = ([p.detach().clone() for p in tparams.values()],
+                  [v.clone() for st in opt.state.values() for v in st.values()], opt.count)
+        for k, p in tparams.items():
+            p.grad = _t(grads[k])
+        gnorm = float(opt.step())
+        if step == 1:
+            assert gnorm > 32
+        if step == 3:
+            assert not math.isfinite(gnorm) and opt.count == before[2] == 3
+            assert all(torch.equal(a, p.detach()) for a, p in zip(before[0], tparams.values()))
+            assert all(torch.equal(a, b) for a, b in zip(
+                before[1], [v for st in opt.state.values() for v in st.values()]))
+        for k in shapes:
+            np.testing.assert_allclose(tparams[k].detach().numpy(), np.asarray(jparams[k]),
+                                       rtol=1e-6, atol=1e-6, err_msg=f"{name} step {step} {k}")
+    assert opt.count == 4
+    # the count travels with the state dict
+    fresh = trainer.build_optimizer(list(tparams.values()), cfg, TOTAL_STEPS)
+    fresh.load_state_dict(opt.state_dict())
+    assert fresh.count == 4
+
+
+def test_unknown_optimizer_raises_a_key_error():
+    for name in ("rmsprop", "adamw", "Adam"):
+        with pytest.raises(KeyError):
+            jtrainer.build_optimizer({"OPTIMIZER": name}, 10)
+        with pytest.raises(KeyError, match=name):
+            trainer.build_optimizer([nn.Parameter(torch.zeros(2))], {"OPTIMIZER": name}, 10)
+
+
+def test_metrics_logger_jsonl_matches_the_jax_package(tmp_path):
+    """The same calls give the same records (every key but ``time``) in
+    ``metrics.jsonl``, TensorBoard off on both sides; a second logger on the
+    same directory appends."""
+    from cpd_tpu.utils.common import MetricsLogger as JaxMetricsLogger
+    from cpd_tpu_torch.utils.common import MetricsLogger
+    calls = [(1, {"total_loss": np.float32(2.5), "grad_norm": 40.25}),
+             (20, {"total_loss": 1.125, "skipped_nonfinite": 0.0, "hm_loss": np.float64(0.3)}),
+             (40, {"nonfinite_rois": 3})]
+    for cls, side, wrap in ((JaxMetricsLogger, "jax", jnp.asarray),
+                            (MetricsLogger, "port", torch.tensor)):
+        for half in (calls[:2], calls[2:]):
+            logger = cls(tmp_path / side, enable_tb=False)
+            assert logger.tb is None
+            for step, m in half:
+                logger.log(step, {k: wrap(v) for k, v in m.items()})
+            logger.close()
+    import json
+    recs = {side: [json.loads(line) for line in (tmp_path / side / "metrics.jsonl").open()]
+            for side in ("jax", "port")}
+    assert len(recs["port"]) == len(calls) == len(recs["jax"])
+    for a, b in zip(recs["port"], recs["jax"]):
+        assert isinstance(a.pop("time"), float) and isinstance(b.pop("time"), float)
+        assert list(a) == list(b)
+        np.testing.assert_allclose(list(a.values()), list(b.values()), rtol=1e-7)
+    assert [r["step"] for r in recs["port"]] == [1, 20, 40]
+
+
+def test_phase_timer_summary_matches_the_jax_package(monkeypatch):
+    """The same phases on the same clock give the same mean seconds per
+    phase; a phase left by an exception is counted."""
+    import types
+    from cpd_tpu.utils import common as jcommon
+    from cpd_tpu_torch.utils import common as pcommon
+    summaries = []
+    for module in (jcommon, pcommon):
+        ticks = iter([0.0, 1.5, 2.0, 2.25, 3.0, 6.0, 10.0, 10.5, 11.0, 11.0])
+        monkeypatch.setattr(module, "time", types.SimpleNamespace(perf_counter=lambda: next(ticks)))
+        timer = module.PhaseTimer()
+        for name in ("data", "step", "data", "h2d"):
+            with timer.phase(name):
+                pass
+        with pytest.raises(ValueError):
+            with timer.phase("step"):
+                raise ValueError
+        summaries.append(timer.summary())
+        monkeypatch.undo()
+    assert summaries[0] == summaries[1] == {"data": 2.25, "step": 0.125, "h2d": 0.5}
 
 
 class _ToyDetector(nn.Module):
