@@ -11,7 +11,9 @@ seed: ``cpd_tpu_torch.models.detector.VoxelRCNN.predict`` (batch 1, MM
 branch off) with the dense backbone tail, as bench.py runs it, and with the
 sparse tail; the evaluation CLI ``cpd_tpu_torch.tools.test`` and the
 training CLI ``cpd_tpu_torch.tools.train`` on the shipped
-voxel_rcnn_cproto_center.yaml (batch 4, 8 written frames); the training step
+voxel_rcnn_cproto_center.yaml (batch 4, 8 written frames); the anchor-head
+models of the DBSCAN, OYSTER and PointPillars yamls (predict, a batch-2
+step, the training CLI on OYSTER); the training step
 of ``cpd_tpu_torch.parallel``
 (``VoxelRCNN.loss_step`` with ``mm=True``, batch 2, 64 label slots, backward,
 clip, adam_onecycle; sparse tail); and the gather-formulation probes of
@@ -117,7 +119,32 @@ raising on failure:
     bit-identical to the first run's; reported beside it, two runs without
     the scope and the scope's cost in ms and device busy ms. With
     ``--determinism RUNS`` only the build and this phase run, with RUNS runs
-    under the scope (``--no-cudnn``: the scope turns cuDNN off instead).
+    under the scope (``--no-cudnn``: the scope turns cuDNN off instead);
+14. the anchor-head models at full width (it runs right after phase 9): (a)
+    the DBSCAN VoxelRCNN yaml as shipped (AnchorHeadSingleV2 with its
+    point-density anchor mask, VoxelRCNNHead, MM off, 150k voxels, stage
+    caps 80k / 40k / 20k / 20k, 212,064 anchors) on the bench frame: cap
+    audit, A1 against its plain version on the 21 convs of its forward,
+    predict (21 A1 launches, none of A2; 2 warm-ups then 3 timed; frames/s,
+    peak memory, the stage breakdown with the proposal layer in parts:
+    decode, top 4096, rotated IoU + NMS and the memory it adds at its peak;
+    profiler window), the card against the CPU on a small input, then a
+    batch-2 training step on labels moved onto its own proposals: A1
+    forward, A1 as dX and A2 against their plain versions on its operands,
+    the step bit-identical twice under ``deterministic_cudnn``, launches
+    (21, 20, 21) through ``make_train_step``, finite anchor losses, 3 timed
+    steps, peak memory, profiler window, and the dense head's forward, loss
+    and backward alone on a detached BEV map with and without the scope;
+    (b) the PointPillars yaml with its
+    range widened to +-75.52 m (472 pillars a side: at +-75.2 m its BEV
+    pyramid does not concatenate, in the JAX package either): pillar
+    occupancy against the 32k cap, predict and a batch-2 step with no A1 or
+    A2 launch, the same measurements and gates; (c) the training CLI on the
+    OYSTER yaml as shipped: 4 written frames with OYSTER prototype banks and
+    a written DB_INFO_PATH pickle (gt_sampling must paste objects), batch 2,
+    ``--epochs 1 --debug_steps 2 --eval_after 1``: 2 steps of (21, 20, 21)
+    launches, finite losses, result.pkl one finite record a frame; the CLI's
+    phase means and each step's ms.
 
 The last two lines of stdout are the card line and a JSON object; the line
 before them is the kernels JSON. For each use of A1 and A2 it gives the
@@ -155,6 +182,7 @@ from cpd_tpu_torch.datasets.registry import build_dataset
 from cpd_tpu_torch.models import build_network
 from cpd_tpu_torch.models.backbone3d import build_branch_rulebooks, stage_grids
 from cpd_tpu_torch.models.bev import height_compression
+from cpd_tpu_torch.models.anchor_head import point_density_anchor_mask
 from cpd_tpu_torch.models.detector import VoxelRCNN, keys_from_frame, set_compute_dtype
 from cpd_tpu_torch.ops import cuda_build
 from cpd_tpu_torch.ops import gather_gemm as a1
@@ -173,7 +201,8 @@ from cpd_tpu_torch.tools.train import device_batch
 from cpd_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from cpd_tpu_torch.utils.device import place
 from cpd_tpu_torch.utils.synthetic import (make_lidar_frame, make_tiny_train_batch,
-                                           make_train_batch, write_waymo_sequence)
+                                           make_train_batch, write_gt_database,
+                                           write_waymo_sequence)
 from cpd_tpu_torch.utils.weights import seeded_state_dict
 
 BENCH = dict(
@@ -221,6 +250,17 @@ OPT_CFG = {"OPTIMIZER": "adam_onecycle", "LR": 0.003, "WEIGHT_DECAY": 1e-5,
 # the eval-CLI phase: the shipped yaml at full width, its eval batch (4) and
 # a written sequence of 8 frames, every frame kept (the yaml keeps every 10th)
 EVAL_YAML = "tools/cfgs/models/voxel_rcnn_cproto_center.yaml"
+DBSCAN_YAML = "tools/cfgs/models/voxel_rcnn_dbscan_single_train.yaml"
+OYSTER_YAML = "tools/cfgs/models/voxel_rcnn_oyster_single_train.yaml"
+PILLAR_YAML = "tools/cfgs/models/pointpillar_dbscan_single_train.yaml"
+# the pillar yaml's one cut: +-75.52 m, 472 pillars a side, the least widening
+# whose BEV pyramid concatenates (at its own +-75.2 m: 235, 236, 236)
+PILLAR_SETS = ["DATA_CONFIG.POINT_CLOUD_RANGE", "[-75.52,-75.52,-2.0,75.52,75.52,4.0]"]
+# one training step of the sparse tail with MM off: A1 21 forward + 20 dX (the
+# input conv's features need no gradient), A2 21
+ANCHOR_A1_FORWARD, ANCHOR_A1_DX, ANCHOR_A2 = 21, 20, 21
+ANCHOR_TIMED_LOOPS = 3
+OYSTER_FRAMES = 4
 EVAL_FRAMES = 8
 EVAL_SEQ = "segment-0000"
 
@@ -553,7 +593,7 @@ def training_proposals(model, batch):
             post_max_size=model.num_rois)
 
 
-def labels_on_proposals(model, batch, n_labelled):
+def labels_on_proposals(model, batch, n_labelled, props=None):
     """Put the first ``n_labelled`` label boxes of each sample on proposals
     of the model's own training-mode forward (every k-th valid one whose
     sides are between 0.3 and 12 m, shifted by 3% of its size and 5% larger
@@ -564,8 +604,8 @@ def labels_on_proposals(model, batch, n_labelled):
     terms would sit on their kink, where the sign of the gradient is
     rounding noise. The forward moves the batch-norm running statistics
     once; the batch statistics, and so the proposals of the next step, are
-    not affected."""
-    props = training_proposals(model, batch)
+    not affected. ``props``: proposals to use instead of the CenterHead's."""
+    props = training_proposals(model, batch) if props is None else props
     gt, gt_valid = batch["gt_boxes"].clone(), batch["gt_valid"].clone()
     matched = []
     for b in range(gt.shape[0]):
@@ -612,9 +652,11 @@ class KernelRecorder:
         sparse.gather_gemm, sparse.gather_gemm_dw = self.saved
 
 
-def train_kernel_checks(model, batch, generator):
+def train_kernel_checks(model, batch, generator,
+                        want=(TRAIN_A1_FORWARD, TRAIN_A1_DX, TRAIN_A2)):
     """Record one forward + backward's kernel operands and hold every kernel
-    use against its plain version on them. Returns {use: (max err, shapes)}."""
+    use against its plain version on them; ``want``: the launches of A1
+    forward, A1 as dX and A2. Returns {use: (max err, shapes)}."""
     model.train()
     with KernelRecorder() as rec:
         loss, _ = model.loss_step(batch, generator=generator)
@@ -623,7 +665,7 @@ def train_kernel_checks(model, batch, generator):
     torch.cuda.synchronize()
     model.zero_grad(set_to_none=True)
     counts = {k: len(v) for k, v in rec.calls.items()}
-    want = {"forward": TRAIN_A1_FORWARD, "dx": TRAIN_A1_DX, "dw": TRAIN_A2}
+    want = dict(zip(("forward", "dx", "dw"), want))
     if counts != want:
         raise AssertionError(f"recorded kernel calls {counts}, want {want}")
     bf16 = torch.bfloat16
@@ -1789,6 +1831,461 @@ def train_cli_phase(dev, card):
     ]
 
 
+def yaml_model(path, sets, seed, dev):
+    """(config, model) of a shipped model yaml with ``sets``, seeded weights,
+    in eval mode on ``dev``."""
+    cfg = cfg_from_list(list(sets), cfg_from_yaml_file(path, ConfigDict()))
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+    model.load_state_dict(seeded_state_dict(model, seed), strict=True)
+    return cfg, place(model.eval(), dev)
+
+
+def anchor_proposals_of(model, batch):
+    """The proposals of a training-mode forward of an anchor model (batch
+    statistics, ``num_rois`` of them), without its RoI head, under no_grad."""
+    model.train()
+    with_roi, model.with_roi_head = model.with_roi_head, False
+    try:
+        with torch.no_grad():
+            out = model(batch)
+    finally:
+        model.with_roi_head = with_roi
+    return {k: out[k] for k in ("rois", "roi_scores", "roi_labels", "roi_valid")}
+
+
+def anchor_stage_breakdown(model, batch):
+    """Host-clock ms per stage of one anchor-model forward, synchronising
+    after each; the proposal layer in its parts (decode of every anchor, the
+    top ``NMS_PRE_MAXSIZE`` per sample, rotated IoU + NMS per sample), and
+    the device memory that the IoU + NMS part adds at its peak."""
+    times, state = {}, {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state[name] = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+
+    n_rois = model.num_rois_test
+    rpn = dict(model.rpn_nms, NMS_POST_MAXSIZE=n_rois)
+    with torch.no_grad():
+        if model.pillars:
+            step("pillars", lambda: model._pillar_bev(batch["points"], batch["points_valid"]))
+            bev_in, backbone_out = state["pillars"], {}
+        else:
+            step("voxelize", lambda: voxelize_batch(batch["points"], model.vox_spec,
+                                                    batch["points_valid"]))
+            keys = keys_from_frame(state["voxelize"], model.grid)
+            step("rulebooks", lambda: build_branch_rulebooks(keys, model.grid,
+                                                             model.backbone.caps))
+            step("sparse_convs", lambda: model.backbone.branch0(state["voxelize"].features,
+                                                                state["rulebooks"]))
+            grids = stage_grids(model.grid)
+            backbone_out = {k: (f, ky, grids[k]) for k, (f, ky) in state["sparse_convs"].items()}
+            bev_in = height_compression(*backbone_out["encoded"])
+        step("bev", lambda: model.bev_backbone(bev_in))
+        mask = None
+        if model.dense_head_name == "AnchorHeadSingleV2":
+            step("anchor_mask", lambda: point_density_anchor_mask(
+                batch["points"], batch["points_valid"], tuple(state["bev"].shape[1:3]),
+                model.point_cloud_range, model.grid.nx))
+            mask = state["anchor_mask"]
+        step("dense_head", lambda: model.dense_head(state["bev"], mask))
+        step("decode", lambda: model.dense_head.generate_predicted_boxes(state["dense_head"]))
+        boxes, scores = state["decode"]
+        pre = min(int(rpn.get("NMS_PRE_MAXSIZE", 4096)), boxes.shape[1])
+        step("top_k", lambda: [nms.top_k(s.amax(-1), pre) for s in scores])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step("iou_nms", lambda: [nms.nms_bev(
+            bx[ti], ts, thresh=rpn["NMS_THRESH"], pre_max_size=pre, post_max_size=n_rois,
+            valid=ts > 0.0, fast=bool(rpn.get("USE_FAST_NMS", True)))
+            for bx, (ts, ti) in zip(boxes, state["top_k"])])
+        iou_peak = torch.cuda.max_memory_allocated() - base
+        step("proposals", lambda: model._anchor_proposals(state["dense_head"], n_rois, rpn))
+        last = state["proposals"]
+        if model.with_roi_head:
+            step("roi_head", lambda: model.roi_head(state["proposals"], backbone_out))
+            last = state["roi_head"]
+        step("post_nms", lambda: model.post_processing(last))
+    return times, iou_peak, pre
+
+
+def anchor_predict_phase(model, batch, what, card, want_a1):
+    """One anchor-model predict at full width: A1 / A2 launch counts of a
+    counted predict, finite outputs, 2 warm-ups then timed loops, peak
+    memory, the stage breakdown with the proposal layer's parts and the IoU
+    + NMS peak, and a profiler window. Returns the A1 launches."""
+    a1.gather_gemm.launches = a1.gather_gemm_dw.launches = 0
+    out = model.predict(batch)
+    torch.cuda.synchronize()
+    launches = (a1.gather_gemm.launches, a1.gather_gemm_dw.launches)
+    if launches != (want_a1, 0):
+        raise AssertionError(f"{what}: (A1, A2) launched {launches} times in one predict, "
+                             f"want {(want_a1, 0)}")
+    n = out["pred_boxes"].shape[1]
+    if out["pred_boxes"].shape != (1, n, 7) or not all(
+            torch.isfinite(v.float()).all() for v in out.values()):
+        raise AssertionError(f"{what}: predict shapes "
+                             f"{ {k: tuple(v.shape) for k, v in out.items()} } or non-finite")
+    print(f"predict, {what} ({card}): {int(out['pred_valid'].sum())} valid detections of {n} "
+          f"slots; (A1, A2) launches {launches}", flush=True)
+    model.predict(batch)  # second warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop_s = []
+    for _ in range(ANCHOR_TIMED_LOOPS):
+        t0 = time.perf_counter()
+        model.predict(batch)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t0)
+    fps = sorted(1.0 / s for s in loop_s)
+    peak = torch.cuda.max_memory_allocated()
+    runs = [anchor_stage_breakdown(model, batch) for _ in range(3)]
+    breakdown = {k: statistics.median(r[0][k] for r in runs) for k in runs[0][0]}
+    print(f"predict, {what} ({card}): frames/s over {ANCHOR_TIMED_LOOPS} loops: median "
+          f"{statistics.median(fps):.3f} min {fps[0]:.3f} max {fps[-1]:.3f}; peak memory "
+          f"{peak / 2**30:.2f} GiB; stage ms (host clock, synchronised, median of 3): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in breakdown.items())
+          + f"; the rotated IoU + NMS over the top {runs[0][2]} proposals adds "
+          f"{max(r[1] for r in runs) / 2**30:.2f} GiB at its peak", flush=True)
+    device_profile(lambda: model.predict(batch), f"predict ({what})",
+                   1e3 / statistics.median(fps))
+    return launches[0]
+
+
+def anchor_small_check(path, sets, what, card):
+    """The anchor model of a yaml cut to a small range (same weights) on the
+    CPU (plain kernel versions) and on the card: head maps and proposals'
+    scores within the bf16 tier. The RPN NMS takes the top 256 anchors: the
+    CPU's rotated IoU over 4096 x 4096 would take minutes."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    half = float(ast.literal_eval(sets[1])[3])
+    sets = list(sets) + ["MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG",
+                         "{'NMS_THRESH': 0.8, 'NMS_PRE_MAXSIZE': 256}"]
+    pts = np.concatenate([rng.uniform(-half, half, (2, 4096, 2)), rng.uniform(-2, 4, (2, 4096, 1)),
+                          rng.uniform(0, 1, (2, 4096, 2))], -1).astype(np.float32)
+    outs = []
+    for device in ("cpu", "cuda"):
+        _, model = yaml_model(path, sets, 3, device)
+        batch = {"points": torch.from_numpy(pts).to(device),
+                 "points_valid": torch.ones(2, 4096, dtype=torch.bool, device=device)}
+        with torch.no_grad():
+            out = model(batch)
+        outs.append({k: out["head_preds"][k].cpu() for k in ("cls_preds", "box_preds")}
+                    | {"roi_scores": out["roi_scores"].cpu()})
+    for k, ref in outs[0].items():
+        err = (outs[1][k] - ref).abs().max().item()
+        scale = max(ref.abs().max().item(), 1e-3)
+        print(f"small input, {what}, card ({card}) vs CPU {k}: max err {err:.3e} (scale "
+              f"{scale:.3e})")
+        if err > 0.03 * scale:
+            raise AssertionError(f"{what}: card and CPU disagree at {k}: {err} vs scale {scale}")
+    print(f"small input, {what}: the check took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def bev_features(model, batch):
+    """The BEV map that feeds the dense head, from a training-mode forward
+    under no_grad."""
+    model.train()
+    with torch.no_grad():
+        if model.pillars:
+            bev = model._pillar_bev(batch["points"], batch["points_valid"])
+        else:
+            frame = voxelize_batch(batch["points"], model.vox_spec, batch["points_valid"])
+            out = model.backbone(frame.features, keys_from_frame(frame, model.grid))
+            bev = height_compression(*out["encoded"])
+        return model.bev_backbone(bev)
+
+
+def dense_head_alone(model, batch, what, card):
+    """The anchor head's share of a training step: on a detached BEV map, the
+    head's forward, ``get_loss`` and backward alone, under
+    ``deterministic_cudnn`` (as a step runs it) and without the scope: ms
+    (median of 3, synchronised), the peak memory of a scoped run above what
+    was allocated before it, and a profiler window of a scoped run."""
+    from cpd_tpu_torch.parallel import deterministic_cudnn
+    head = model.dense_head
+    st = bev_features(model, batch)
+    mask = (point_density_anchor_mask(batch["points"], batch["points_valid"],
+                                      tuple(st.shape[1:3]), model.point_cloud_range,
+                                      model.grid.nx)
+            if model.dense_head_name == "AnchorHeadSingleV2" else None)
+
+    def run(scope):
+        head.zero_grad(set_to_none=True)
+        with scope():
+            preds = head(st, mask)
+            loss, _ = head.get_loss(preds, batch["gt_boxes"], batch["gt_valid"])
+            loss.backward()
+        torch.cuda.synchronize()
+
+    import contextlib
+    times = {}
+    for name, scope in (("deterministic_cudnn", deterministic_cudnn),
+                        ("no scope", contextlib.nullcontext)):
+        run(scope)
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(scope)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[name] = statistics.median(ms)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run(deterministic_cudnn)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"{what}, the dense head alone (forward + get_loss + backward on a detached "
+          f"{tuple(st.shape)} BEV map, {card}): " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in times.items())
+          + f" (medians of 3); {peak / 2**30:.2f} GiB above the inputs at the peak", flush=True)
+    device_profile(lambda: run(deterministic_cudnn), f"dense head step ({what})",
+                   times["deterministic_cudnn"], loops=1)
+    head.zero_grad(set_to_none=True)
+
+
+def step_twice_identical(model, batch, dev, what, card):
+    """One training step's loss_step + backward twice from the same state
+    under ``deterministic_cudnn`` (as ``make_train_step`` runs it): the loss,
+    every tb entry, every gradient and every buffer bit-identical, a gate."""
+    from cpd_tpu_torch.parallel import deterministic_cudnn
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(start, strict=True)
+        model.train().zero_grad(set_to_none=True)
+        with deterministic_cudnn():
+            loss, tb = model.loss_step(batch, generator=torch.Generator(device=dev).manual_seed(0))
+            loss.backward()
+        torch.cuda.synchronize()
+        runs.append([("loss", loss.detach().clone())]
+                    + [(f"tb[{k}]", v.detach().clone()) for k, v in tb.items()]
+                    + [(n, p.grad.clone()) for n, p in model.named_parameters()
+                       if p.grad is not None]
+                    + [(n, b.clone()) for n, b in model.named_buffers()])
+    model.load_state_dict(start, strict=True)
+    model.zero_grad(set_to_none=True)
+    differ = next((n for (n, x), (_, y) in zip(*runs) if not torch.equal(x, y)), None)
+    print(f"step determinism, {what} ({card}): two runs of loss_step + backward under "
+          f"deterministic_cudnn, {len(runs[0])} tensors: "
+          f"{'bit-identical' if differ is None else 'first difference at ' + differ}", flush=True)
+    if differ is not None:
+        raise AssertionError(f"{what}: one training step is not bit-identical twice, first at "
+                             f"{differ}")
+
+
+def anchor_train_phase(model, batch, what, card, dev, want):
+    """A batch-2 training step of an anchor model through ``make_train_step``
+    on labels moved onto its own proposals: (A1 forward, A1 dX, A2) launches
+    of the first step as ``want``, finite terms with the anchor losses, no
+    step skipped, 2 warm-ups then timed steps (ms, phases, peak memory), a
+    profiler window, and the step bit-identical twice."""
+    batch, matched = labels_on_proposals(model, batch, n_labelled=40,
+                                         props=anchor_proposals_of(model, batch))
+    print(f"training batch, {what} ({card}): {TRAIN_BATCH} frames of {N_POINTS} points, "
+          f"{batch['gt_boxes'].shape[1]} label slots, {matched} labels a sample placed on "
+          f"proposals", flush=True)
+    step_twice_identical(model, batch, dev, what, card)
+    state = init_state(model, OPT_CFG, total_steps=100, device=dev)
+    train_step = make_train_step()
+    generator = torch.Generator(device=dev).manual_seed(0)
+    with StepMarks(state) as marks:
+        a1.gather_gemm.launches = a1.gather_gemm_dw.launches = 0
+        state, tb = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        fwd, a2_fwd = marks.rows[0]["forward_launches"]
+        got = (fwd, a1.gather_gemm.launches - fwd, a1.gather_gemm_dw.launches, a2_fwd)
+        if got != tuple(want) + (0,):
+            raise AssertionError(f"{what}: the train step launched (A1 forward, A1 dX, A2, A2 "
+                                 f"in the forward) = {got}, want {tuple(want) + (0,)}")
+        print(f"{what}, first tb: " + ", ".join(f"{k} {float(v):.4f}" for k, v in tb.items()),
+              flush=True)
+        state, tb = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        for _ in range(ANCHOR_TIMED_LOOPS):
+            t0 = time.perf_counter()
+            state, tb = train_step(state, batch, generator)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            bad = [k for k, v in tb.items() if not math.isfinite(float(v))]
+            if bad or float(tb["skipped_nonfinite"]):
+                raise AssertionError(f"{what}: non-finite tb {bad} or a skipped step")
+        peak = torch.cuda.max_memory_allocated()
+        phases = marks.phase_ms(marks.rows[-ANCHOR_TIMED_LOOPS:])
+    if not {"rpn_cls", "rpn_reg", "rpn_dir", "rpn_loss"} <= set(tb) or float(tb["rpn_reg"]) <= 0:
+        raise AssertionError(f"{what}: the anchor losses are missing or rpn_reg is 0: "
+                             f"{sorted(tb)}")
+    ms = sorted(x * 1e3 for x in step_s)
+    print(f"train step, {what} ({card}): ms over {ANCHOR_TIMED_LOOPS} steps median "
+          f"{statistics.median(ms):.2f} min {ms[0]:.2f} max {ms[-1]:.2f}; phases (CUDA events, "
+          f"medians): " + ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
+          + f"; peak memory {peak / 2**30:.2f} GiB; launches a step (A1 forward, A1 dX, A2) "
+          f"{got[:3]}; last tb: " + ", ".join(f"{k} {float(v):.4f}" for k, v in tb.items()),
+          flush=True)
+    device_profile(lambda: train_step(state, batch, generator), f"train step ({what})",
+                   statistics.median(ms), loops=2)
+    dense_head_alone(model, batch, what, card)
+    return got[:3]
+
+
+def pillar_occupancy(model, batch, card):
+    """Valid pillars of the frame against the pillar cap; raises at the cap."""
+    with torch.no_grad():
+        frame = voxelize_batch(batch["points"], model.vox_spec, batch["points_valid"])
+    n, cap = int(frame.valid.sum(-1).max()), model.vox_spec.max_voxels
+    print(f"pillar occupancy / cap: {n} / {cap} (grid {model.grid.nx} x {model.grid.ny}; "
+          f"{card})", flush=True)
+    if n >= cap:
+        raise AssertionError(f"the pillar cap is saturated: {n}/{cap}")
+
+
+def oyster_cli_phase(dev, card):
+    """The training CLI on the OYSTER yaml as shipped, as a user runs it:
+    ``--epochs 1 --debug_steps 2 --eval_after 1`` at its batch of 2 on a
+    written sequence of 4 frames of 200k points with OYSTER prototype banks
+    and a written DB_INFO_PATH pickle, then the eval CLI on the checkpoint.
+    Gates: gt_sampling pastes objects into the training samples; 2 steps,
+    each with (21, 20, 21) launches of A1 forward, A1 dX and A2 and none in
+    the forward; the counters accounted for with the eval's A1 launches;
+    finite anchor and RoI losses, no step skipped; result.pkl one finite
+    record a frame."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        frames = [make_lidar_frame(np.random.default_rng(i), N_POINTS)[0]
+                  for i in range(OYSTER_FRAMES)]
+        write_waymo_sequence(tmp, EVAL_SEQ, frames, seed=0, n_boxes=8, protos=True,
+                             init_label_generator="OYSTER")
+        sets = ["DATA_CONFIG.DATA_PATH", str(tmp), "DATA_CONFIG.SAMPLED_INTERVAL.train", "1",
+                "DATA_CONFIG.SAMPLED_INTERVAL.test", "1"]
+        cfg = cfg_from_list(sets, cfg_from_yaml_file(OYSTER_YAML, ConfigDict()))
+        sampling = [a for a in cfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST
+                    if a["NAME"] == "gt_sampling"][0]
+        write_gt_database(tmp / sampling["DB_INFO_PATH"][0], seed=0)
+        dataset = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, True, str(tmp))
+        sample = dataset[0]
+        pasted = int(((sample["proto_group_id"] == -1) & sample["gt_valid"]).sum())
+        if dataset.data_augmentor.queue[0][0] != "gt_sampling" or pasted == 0:
+            raise AssertionError("OYSTER: gt_sampling pasted no object into a training sample")
+        batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+        logger = logging.getLogger("cpd_tpu_torch")
+        lines = LogLines()
+        logger.addHandler(lines)
+        try:
+            with CLISteps() as steps:
+                steps.run = "oyster"
+                a1.gather_gemm.launches = a1.gather_gemm_dw.launches = 0
+                t1 = time.perf_counter()
+                state = train_cli.main(["--cfg_file", OYSTER_YAML, "--output_dir",
+                                        str(tmp / "out"), "--epochs", "1", "--debug_steps", "2",
+                                        "--log_every", "1", "--eval_after", "1", "--set", *sets])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t1
+                totals = a1.gather_gemm.launches, a1.gather_gemm_dw.launches
+        finally:
+            logger.removeHandler(lines)
+        want = (ANCHOR_A1_FORWARD, ANCHOR_A1_DX, ANCHOR_A2, 0)
+        if state.step != 2 or [r["launches"] for r in steps.rows] != [want, want]:
+            raise AssertionError(f"OYSTER train CLI: {state.step} steps, launches "
+                                 f"{[r['launches'] for r in steps.rows]}, want 2 x {want}")
+        eval_a1 = A1_PER_FORWARD[False] * math.ceil(OYSTER_FRAMES / batch_size)
+        if totals != (2 * (ANCHOR_A1_FORWARD + ANCHOR_A1_DX) + eval_a1, 2 * ANCHOR_A2):
+            raise AssertionError(f"OYSTER train CLI: the counters read {totals}")
+        for r in steps.rows:
+            bad = [k for k, v in r["tb"].items() if not math.isfinite(v)]
+            if bad or r["tb"]["skipped_nonfinite"] or not {"rpn_cls", "rpn_reg", "rcnn_cls0"} \
+                    <= set(r["tb"]):
+                raise AssertionError(f"OYSTER train CLI step: non-finite {bad}, tb keys "
+                                     f"{sorted(r['tb'])}")
+        with open(tmp / "out" / "eval_epoch_0" / "result.pkl", "rb") as f:
+            result = pickle.load(f)
+        want_ids = [f"{EVAL_SEQ}#{i:04d}" for i in range(OYSTER_FRAMES)]
+        if [a["frame_id"] for a in result] != want_ids or not all(
+                np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
+                for a in result):
+            raise AssertionError("OYSTER train CLI: the eval's result.pkl is incomplete or "
+                                 "non-finite")
+        n_steps, rate, means = _phase_means(lines.lines)[-1]
+        print(f"OYSTER train CLI ({card}): {pasted} objects pasted into sample 0; batch "
+              f"{batch_size}, {n_steps} steps at {rate} steps/s; the CLI's phase means "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in means.items())
+              + "; each step " + ", ".join(f"{r['ms']:.1f}" for r in steps.rows)
+              + f" ms; per step A1 {want[0]} forward + {want[1]} dX, A2 {want[2]}; "
+              f"{sum(len(a['score']) for a in result)} detections in result.pkl; the CLI call "
+              f"{secs:.1f} s with its eval; last tb: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in steps.rows[-1]["tb"].items()), flush=True)
+    print(f"OYSTER train CLI phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+
+
+def anchor_phase(dev, card):
+    """Phase 14, the anchor-head models at full width. (a) The DBSCAN
+    VoxelRCNN yaml as shipped (AnchorHeadSingleV2, VoxelRCNNHead, MM off) on
+    the bench frame: cap audit, A1 against its plain version on the 21 convs
+    of its forward, predict, the card against the CPU on a small input, and a
+    batch-2 training step with A1 forward, A1 as dX and A2 against their
+    plain versions on its operands. (b) The PointPillars yaml at +-75.52 m:
+    pillar occupancy, predict and a batch-2 step with no A1 or A2 launch.
+    (c) The training CLI on the OYSTER yaml. Returns the kernels-line
+    entries of the DBSCAN model's kernel uses."""
+    t0 = time.perf_counter()
+    src1, src2 = "cpd_tpu_torch/csrc/gather_gemm.cu", "cpd_tpu_torch/csrc/gather_gemm_dw.cu"
+    pts, valid = make_lidar_frame(np.random.default_rng(0), N_POINTS)
+    batch = {"points": torch.from_numpy(pts)[None].to(dev),
+             "points_valid": torch.from_numpy(valid)[None].to(dev)}
+    _, model = yaml_model(DBSCAN_YAML, [], 0, dev)
+    cap_audit(model, batch)
+    convs = recorded_forward(model, batch)
+    max_err, shape_times = check_kernel("A1 DBSCAN predict", convs, a1_kernel, a1_plain,
+                                        torch.bfloat16)
+    del convs
+    launches = anchor_predict_phase(model, batch, "DBSCAN VoxelRCNN", card, ANCHOR_A1_FORWARD)
+    kernels = [kernel_entry("gather_gemm", "DBSCAN VoxelRCNN predict", src1,
+                            "cpd_tpu/ops/pallas_conv.py:77", launches, max_err, shape_times)]
+    cut = ["DATA_CONFIG.POINT_CLOUD_RANGE", "[-8.0,-8.0,-2.0,8.0,8.0,4.0]",
+           "MODEL.BACKBONE_3D.VOXEL_CAPS", "[8000,4000,2000,2000]",
+           "DATA_CONFIG.DATA_PROCESSOR", "[{'NAME': 'transform_points_to_voxels', "
+           "'VOXEL_SIZE': [0.1, 0.1, 0.15], 'MAX_NUMBER_OF_VOXELS': {'train': 10000, "
+           "'test': 10000}}]"]
+    anchor_small_check(DBSCAN_YAML, cut, "DBSCAN VoxelRCNN", card)
+    train_batch = to_device(make_train_batch(0, TRAIN_BATCH, N_POINTS), dev)
+    checks = train_kernel_checks(model, labels_on_proposals(
+        model, train_batch, 40, props=anchor_proposals_of(model, train_batch))[0],
+        step_generator(0, 0, dev), want=(ANCHOR_A1_FORWARD, ANCHOR_A1_DX, ANCHOR_A2))
+    got = anchor_train_phase(model, train_batch, "DBSCAN VoxelRCNN", card, dev,
+                             (ANCHOR_A1_FORWARD, ANCHOR_A1_DX, ANCHOR_A2))
+    kernels += [
+        kernel_entry("gather_gemm", "DBSCAN VoxelRCNN train step, forward", src1,
+                     "cpd_tpu/ops/pallas_conv.py:77", got[0], *checks["forward"]),
+        kernel_entry("gather_gemm (dX)", "DBSCAN VoxelRCNN train step, backward", src1,
+                     "cpd_tpu/ops/pallas_conv.py:77", got[1], *checks["dx"]),
+        kernel_entry("gather_gemm_dw", "DBSCAN VoxelRCNN train step, backward", src2,
+                     "cpd_tpu/ops/pallas_conv.py:130", got[2], *checks["dw"]),
+    ]
+    del model
+    torch.cuda.empty_cache()
+    print(f"DBSCAN VoxelRCNN done at {time.perf_counter() - t0:.1f} s of the phase", flush=True)
+
+    _, model = yaml_model(PILLAR_YAML, PILLAR_SETS, 0, dev)
+    pillar_occupancy(model, batch, card)
+    anchor_predict_phase(model, batch, "PointPillars", card, 0)
+    anchor_small_check(PILLAR_YAML, ["DATA_CONFIG.POINT_CLOUD_RANGE",
+                                     "[-6.4,-6.4,-2.0,6.4,6.4,4.0]"], "PointPillars", card)
+    anchor_train_phase(model, train_batch, "PointPillars", card, dev, (0, 0, 0))
+    del model, train_batch
+    torch.cuda.empty_cache()
+    print(f"PointPillars done at {time.perf_counter() - t0:.1f} s of the phase", flush=True)
+
+    oyster_cli_phase(dev, card)
+    print(f"anchor phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return kernels
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     parser.add_argument("--determinism", type=int, metavar="RUNS",
@@ -1852,6 +2349,8 @@ def main():
     kernels.append(eval_cli_phase(dev, card))
     torch.cuda.empty_cache()
     kernels += train_cli_phase(dev, card)
+    torch.cuda.empty_cache()
+    kernels += anchor_phase(dev, card)
     torch.cuda.empty_cache()
 
     kernels += training_phase(dev)

@@ -282,8 +282,18 @@ class DataAugmentor:
         rng = rng if rng is not None else self.rng
         for name, cfg in self.queue:
             if name == "gt_sampling":
+                n_before = len(data["gt_boxes"])
                 pts, boxes, names = cfg(data["points"], data["gt_boxes"], data["gt_names"], rng)
                 data["points"], data["gt_boxes"], data["gt_names"] = pts, boxes, names
+                # the pasted boxes get the weight and group of a plain label
+                # (CSS 1, no prototype), so that css_score and proto_group_id
+                # stay row for row with gt_boxes; the JAX package leaves them
+                # short, and its prepare_data then raises an IndexError
+                for extra, fill in (("css_score", 1.0), ("proto_group_id", -1)):
+                    if data.get(extra) is not None and len(data[extra]) == n_before:
+                        old = np.asarray(data[extra])
+                        data[extra] = np.concatenate(
+                            [old, np.full(len(boxes) - n_before, fill, old.dtype)])
                 continue
             if _augmentor_forward_local(self, data, name, cfg, rng):
                 continue

@@ -122,3 +122,26 @@ def boxes_iou3d(boxes_a, boxes_b):
     vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
     vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
     return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)
+
+
+def boxes_aligned_iou_bev(boxes_a, boxes_b):
+    """(N, 7), (M, 7) -> (N, M) IoU of the axis-aligned BEV footprints: a
+    heading nearer to +-pi/2 than to 0 or pi swaps dx and dy (the anchor
+    matching's nearest-BEV IoU)."""
+
+    def to_aabb(b):
+        rot = torch.abs(torch.remainder(b[:, 6], math.pi))
+        swap = (rot > math.pi / 4) & (rot < 3 * math.pi / 4)
+        dx = torch.where(swap, b[:, 4], b[:, 3])
+        dy = torch.where(swap, b[:, 3], b[:, 4])
+        return torch.stack([b[:, 0] - dx / 2, b[:, 1] - dy / 2,
+                            b[:, 0] + dx / 2, b[:, 1] + dy / 2], dim=-1)
+
+    a, b = to_aabb(boxes_a), to_aabb(boxes_b)
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = ((a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1]))[:, None]
+    area_b = ((b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]))[None, :]
+    return inter / torch.clamp(area_a + area_b - inter, min=1e-6)

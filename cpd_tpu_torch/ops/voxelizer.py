@@ -41,6 +41,7 @@ class VoxelizedFrame(NamedTuple):
     coords: torch.Tensor  # (V_cap, 3) int32 zyx coords, -1 padded
     num_points: torch.Tensor  # (V_cap,) int32 points per voxel
     valid: torch.Tensor  # (V_cap,) bool
+    point_voxel_id: torch.Tensor  # (P_cap,) int32 row in the voxel table, -1 if dropped
 
 
 def compute_voxel_keys(points, spec: VoxelizerSpec, valid=None):
@@ -65,11 +66,14 @@ def key_to_coords(key, spec: VoxelizerSpec):
     return torch.where(key[:, None] >= 0, coords, -1).to(torch.int32)
 
 
-def voxelize(points, spec: VoxelizerSpec, valid=None) -> VoxelizedFrame:
+def voxelize(points, spec: VoxelizerSpec, valid=None,
+             with_point_voxel_id: bool = False) -> VoxelizedFrame:
     """Dynamic voxelization + mean VFE for one frame.
 
     points: (P, C) with xyz in the first 3 channels; ``valid`` masks padded
     points. Voxels come out in ascending key order, padded rows at the end.
+    ``with_point_voxel_id``: map each point to its voxel's row (only
+    PillarVFE reads it); otherwise the field is all -1.
     """
     p_cap, c = points.shape
     v_cap = spec.max_voxels
@@ -108,17 +112,25 @@ def voxelize(points, spec: VoxelizerSpec, valid=None) -> VoxelizedFrame:
     voxel_keys = voxel_keys[:v_cap]
     valid_voxels = counts > 0
     voxel_keys = torch.where(valid_voxels, voxel_keys, -1)
+    point_voxel_id = torch.full((p_cap,), -1, dtype=torch.int32, device=dev)
+    if with_point_voxel_id:
+        # ``order`` is a permutation: every row is written once
+        pv = torch.where(point_ok & (slot < v_cap), slot, -1)
+        point_voxel_id.index_copy_(0, order, pv)
     return VoxelizedFrame(
         features=torch.where(valid_voxels[:, None], feats, 0.0),
         coords=key_to_coords(voxel_keys, spec),
         num_points=counts,
         valid=valid_voxels,
+        point_voxel_id=point_voxel_id,
     )
 
 
-def voxelize_batch(points, spec: VoxelizerSpec, valid=None) -> VoxelizedFrame:
+def voxelize_batch(points, spec: VoxelizerSpec, valid=None,
+                   with_point_voxel_id: bool = False) -> VoxelizedFrame:
     """points (B, P, C) -> VoxelizedFrame with a leading B axis."""
     if valid is None:
         valid = torch.ones(points.shape[:2], dtype=torch.bool, device=points.device)
-    frames = [voxelize(points[i], spec, valid[i]) for i in range(points.shape[0])]
+    frames = [voxelize(points[i], spec, valid[i], with_point_voxel_id)
+              for i in range(points.shape[0])]
     return VoxelizedFrame(*(torch.stack(f) for f in zip(*frames)))

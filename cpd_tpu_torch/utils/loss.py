@@ -18,6 +18,16 @@ def safe_norm(x, dim: int = -1, eps: float = 1e-9):
     return torch.sqrt(torch.sum(x * x, dim=dim) + eps)
 
 
+def sigmoid_focal_loss(logits, targets, weights, gamma: float = 2.0, alpha: float = 0.25):
+    """Per-anchor sigmoid focal loss. logits/targets: (..., C); weights
+    broadcast against (...,). Returns (..., C)."""
+    p = torch.sigmoid(logits)
+    alpha_w = targets * alpha + (1 - targets) * (1 - alpha)
+    pt = targets * (1.0 - p) + (1 - targets) * p
+    focal = alpha_w * torch.pow(pt, gamma)
+    return focal * binary_cross_entropy_with_logits(logits, targets) * weights[..., None]
+
+
 def smooth_l1(diff, beta: float = 1.0 / 9.0):
     n = torch.abs(diff)
     return torch.where(n < beta, 0.5 * n ** 2 / beta, n - 0.5 * beta)

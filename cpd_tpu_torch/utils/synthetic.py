@@ -240,7 +240,8 @@ def _class_boxes(rng, n, r_max):
 
 
 def write_waymo_sequence(data_root, seq: str, frames, seed: int = 0, n_boxes: int = 8,
-                         r_max: float = 70.0, protos: bool = False):
+                         r_max: float = 70.0, protos: bool = False,
+                         init_label_generator: str = "MFCF"):
     """Write ``frames`` (point arrays (N, >= 4): x y z intensity ...) as one
     sequence of the processed Waymo layout that
     ``datasets.waymo_unsupervised.WaymoUnsupervisedDataset`` reads, under
@@ -253,8 +254,10 @@ def write_waymo_sequence(data_root, seq: str, frames, seed: int = 0, n_boxes: in
     * ``<seq>_outline_C_PROTO.pkl``: per frame ``n_boxes`` pseudo-label boxes
       drawn the same way, scores in [0.3, 1] and prototype ids 0-2 (the
       pseudo-label factory that makes these is not ported);
-    * with ``protos``, ``<seq>_outline_MFCF_CSS_proto.pkl``: three prototype
-      banks a class of 64 box-canonical points each (training mode reads them).
+    * with ``protos``, ``<seq>_outline_<init_label_generator>_CSS_proto.pkl``
+      (the yaml's InitLabelGenerator: MFCF, DBSCAN or OYSTER): three
+      prototype banks a class of 64 box-canonical points each (training mode
+      reads them).
 
     Every draw comes from ``numpy.random.default_rng([seed, frame])``.
     Returns the sequence directory."""
@@ -290,6 +293,42 @@ def write_waymo_sequence(data_root, seq: str, frames, seed: int = 0, n_boxes: in
         rng = np.random.default_rng([seed, len(frames)])
         banks = {c: {pid: {"points": (rng.uniform(-0.5, 0.5, (64, 3)) * size).astype(np.float32)}
                      for pid in range(3)} for c, size in CLASS_SIZES.items()}
-        with open(seq_dir / f"{seq}_outline_MFCF_CSS_proto.pkl", "wb") as f:
+        with open(seq_dir / f"{seq}_outline_{init_label_generator}_CSS_proto.pkl", "wb") as f:
             pickle.dump({"proto_points_set": banks}, f)
     return seq_dir
+
+
+def write_gt_database(path, seed: int = 0, n_per_class: int = 4, r_max: float = 70.0,
+                      n_points: int = 40):
+    """Write a tracked-object database for the ``gt_sampling`` augmentation
+    (the pickle a yaml's DB_INFO_PATH names): {class: [info]}, for each class
+    ``n_per_class`` class-sized boxes within ``r_max`` m, each with
+    ``n_points`` points (x y z intensity elongation) inside it in world
+    coordinates, ``num_points_in_gt`` and difficulty 0: the layout that
+    ``datasets.augmentor.DataBaseSampler`` reads. Draws come from
+    ``numpy.random.default_rng(seed)``. Returns the path."""
+    import pickle
+    from pathlib import Path
+
+    rng = np.random.default_rng(seed)
+    db = {}
+    for name in CLASS_SIZES:
+        boxes, _ = _class_boxes(rng, n_per_class, r_max)
+        boxes[:, 3:6] = np.asarray(CLASS_SIZES[name], np.float32)
+        infos = []
+        for box in boxes:
+            local = rng.uniform(-0.45, 0.45, (n_points, 3)) * box[3:6]
+            c, s_ = np.cos(box[6]), np.sin(box[6])
+            pts = np.zeros((n_points, 5), np.float32)
+            pts[:, 0] = box[0] + local[:, 0] * c - local[:, 1] * s_
+            pts[:, 1] = box[1] + local[:, 0] * s_ + local[:, 1] * c
+            pts[:, 2] = box[2] + local[:, 2]
+            pts[:, 3] = rng.uniform(0, 1, n_points)
+            infos.append({"name": name, "box3d_lidar": box.astype(np.float32), "points": pts,
+                          "num_points_in_gt": n_points, "difficulty": 0})
+        db[name] = infos
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(db, f)
+    return path

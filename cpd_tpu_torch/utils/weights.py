@@ -5,7 +5,10 @@ tree (numpy leaves) to this package's state dict. Module names follow the
 flax tree, with flax's auto-names renamed (``SubMConvBN_0/1`` -> ``conv1/2``,
 ``MaskedBatchNorm_0``/``BatchNorm2d_0`` -> ``bn``, ``Conv_0`` -> ``conv``) and
 the GridPoolBranch MLP layers (``Dense_0..7``, flax's creation order) mapped
-to ``mlp_{scale}_{group}.{0,2}``. Leaves change layout:
+to ``mlp_{scale}_{group}.{0,2}``; the anchor head V2's branches keep their
+names with ``Conv_0`` / ``BatchNorm2d_0`` / ``Conv_1`` -> ``conv`` / ``bn`` /
+``out``, and PillarVFE's ``MaskedBatchNorm_{i}`` beside ``pfn{i}`` becomes
+``bn{i}``. Leaves change layout:
 
 * sparse conv kernels (K, Cin, Cout) pass through unchanged;
 * flax Conv (kh, kw, Cin, Cout) -> torch (Cout, Cin, kh, kw);
@@ -36,7 +39,7 @@ from ..models.norm import _RunningNorm
 from ..models.roi_head import SCALE_SPECS
 
 _SEGMENTS = {"SubMConvBN_0": "conv1", "SubMConvBN_1": "conv2", "MaskedBatchNorm_0": "bn",
-             "BatchNorm2d_0": "bn", "Conv_0": "conv"}
+             "BatchNorm2d_0": "bn", "Conv_0": "conv", "Conv_1": "out"}
 _LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
            "var": "running_var"}
 # flax creation order of GridPoolBranch's MLP Dense layers
@@ -59,6 +62,8 @@ def _key_and_layout(path, leaf):
         i = int(mods[-1].split("_")[1])
         scale, gi = _MLP_GROUPS[i // 2]
         mods = mods[:-1] + [f"mlp_{scale}_{gi}", str(2 * (i % 2))]
+    if mods[:1] == ["vfe"]:  # PillarVFE: pfn{i} and its MaskedBatchNorm_{i}
+        mods = [re.sub(r"^MaskedBatchNorm_(\d+)$", r"bn\1", m) for m in mods]
     mods = [_SEGMENTS.get(m, m) for m in mods]
     layout = "same"
     if name == "kernel":

@@ -1,11 +1,14 @@
 """``build_network`` of the port against the JAX package's, on the CPU.
 
-* The two yamls whose modules are ported (voxel_rcnn_cproto_center and its
-  KITTI variant) build in both packages at full width, and the JAX
-  parameter tree of a training init maps key for key onto the port's state
-  dict through ``state_dict_from_jax``.
-* The three anchor-head yamls, and every module name that is not ported,
-  raise a KeyError that names the module.
+* All five shipped model yamls build in both packages at full width, and
+  the JAX parameter tree of a training init maps key for key onto the
+  port's state dict through ``state_dict_from_jax``: voxel_rcnn_cproto_center
+  and its KITTI variant (MM on), the DBSCAN and OYSTER VoxelRCNN yamls
+  (AnchorHeadSingleV2, VoxelRCNNHead, MM off) and the PointPillars yaml
+  (PillarVFE, no 3D backbone, no RoI head; at +-75.52 m, where its BEV
+  pyramid concatenates: at its own +-75.2 m neither package runs it, see
+  tests/test_torch_port_pillars.py).
+* Every module name that is not ported raises a KeyError that names it.
 * With the scale overrides ``SCALE_SETS`` (range, voxel and RoI caps; no
   width changes), one f32 ``predict`` of the shipped yaml's model, same
   seeded weights, JAX under ``jax_nms_with_clip_iou`` and ``jax_f32``:
@@ -41,10 +44,25 @@ from cpd_tpu_torch.utils.weights import state_dict_from_jax
 from tests.test_torch_port_models import jax_nms_with_clip_iou, seeded_jax_variables
 
 SHIPPED = "tools/cfgs/models/voxel_rcnn_cproto_center.yaml"
-PORTED = [SHIPPED, "tools/cfgs/models/voxel_rcnn_cproto_center_kitti.yaml"]
-NOT_PORTED = {"tools/cfgs/models/voxel_rcnn_dbscan_single_train.yaml": "AnchorHeadSingleV2",
-              "tools/cfgs/models/voxel_rcnn_oyster_single_train.yaml": "AnchorHeadSingleV2",
-              "tools/cfgs/models/pointpillar_dbscan_single_train.yaml": "AnchorHeadSingle"}
+PILLAR_RANGE_SETS = ["DATA_CONFIG.POINT_CLOUD_RANGE", "[-75.52,-75.52,-2.0,75.52,75.52,4.0]"]
+# per yaml: the sets its full-width build takes, MM, the stage caps, the
+# voxel (pillar) cap, the dense head, and a state-dict key with its shape
+PORTED = {
+    SHIPPED: ([], True, (80000, 40000, 20000, 20000), 150000, "CenterHead",
+              ("roi_head.shared0.fc1.weight", (256, 256))),
+    "tools/cfgs/models/voxel_rcnn_cproto_center_kitti.yaml": (
+        [], True, (80000, 40000, 20000, 20000), 150000, "CenterHead",
+        ("roi_head.shared0.fc1.weight", (256, 256))),
+    "tools/cfgs/models/voxel_rcnn_dbscan_single_train.yaml": (
+        [], False, (80000, 40000, 20000, 20000), 150000, "AnchorHeadSingleV2",
+        ("dense_head.conv_cls.out.weight", (18, 64, 1, 1))),
+    "tools/cfgs/models/voxel_rcnn_oyster_single_train.yaml": (
+        [], False, (80000, 40000, 20000, 20000), 150000, "AnchorHeadSingleV2",
+        ("dense_head.conv_reg.conv.weight", (64, 64, 3, 3))),
+    "tools/cfgs/models/pointpillar_dbscan_single_train.yaml": (
+        PILLAR_RANGE_SETS, False, None, 32000, "AnchorHeadSingle",
+        ("vfe.pfn0.weight", (64, 10))),
+}
 RANGE = 12.0
 # ``--set`` overrides that cut the scale for the CPU: a 24 m square (BEV maps
 # of 30 x 30 and 15 x 15), voxel and stage caps, 4096 points a frame, 64 test
@@ -134,37 +152,47 @@ def seeded_pair(port_cfg, jax_cfg, seed=0):
     return jm, variables, set_compute_dtype(pm.eval(), None)
 
 
-@pytest.mark.parametrize("path", PORTED)
+@pytest.mark.parametrize("path", sorted(PORTED))
 def test_ported_yaml_builds_at_full_width_with_one_to_one_keys(path):
-    port_cfg, jax_cfg = load_pair(path)
+    sets, mm, caps, max_voxels, head, (key, shape) = PORTED[path]
+    port_cfg, jax_cfg = load_pair(path, sets)
     jm = jdet.build_network(jax_cfg.MODEL, len(jax_cfg.CLASS_NAMES), jax_cfg.DATA_CONFIG)
     pm = build_network(port_cfg.MODEL, len(port_cfg.CLASS_NAMES), port_cfg.DATA_CONFIG)
-    assert pm.mm and jm.mm and pm.backbone.caps == tuple(jm.backbone_caps) == (
-        80000, 40000, 20000, 20000)
-    assert pm.vox_spec.max_voxels == jm.max_voxels == 150000
+    assert pm.mm == jm.mm == mm
+    assert pm.dense_head_name == jm.dense_head_name == head
+    assert pm.with_roi_head == jm.with_roi_head == (caps is not None)
+    if caps is not None:
+        assert pm.backbone.caps == tuple(jm.backbone_caps) == caps
+        assert pm.roi_head.mm == mm
+    else:
+        assert not hasattr(pm, "backbone") and pm.grid.nx == 472
+    assert pm.vox_spec.max_voxels == jm.max_voxels == max_voxels
     shapes = jax_shapes(jm)
     n_leaves = sum(len(jax.tree_util.tree_leaves(shapes[c])) for c in ("params", "batch_stats"))
     sd = state_dict_from_jax(seeded_jax_variables(shapes, 0), pm)  # raises on any mismatch
     assert set(sd) == set(pm.state_dict()) and len(sd) == n_leaves
-    assert sd["backbone.branch0.conv_input.weight"].shape == (27, 5, 16)
-    assert sd["roi_head.shared0.fc1.weight"].shape == (256, 256)
-
-
-@pytest.mark.parametrize("path", sorted(NOT_PORTED))
-def test_unported_yaml_names_its_module(path):
-    port_cfg, _ = load_pair(path)
-    with pytest.raises(KeyError, match=f"'{NOT_PORTED[path]}' is not ported yet"):
-        build_network(port_cfg.MODEL, len(port_cfg.CLASS_NAMES), port_cfg.DATA_CONFIG)
+    if caps is not None:
+        assert sd["backbone.branch0.conv_input.weight"].shape == (27, 5, 16)
+    assert sd[key].shape == shape
 
 
 @pytest.mark.parametrize("field,name", [
-    ("backbone3d_name", "VoxelBackBone8x"), ("dense_head_name", "AnchorHeadSingle"),
-    ("roi_head_name", "VoxelRCNNHead"), ("vfe_name", "PillarVFE"),
-    ("map_to_bev_name", "PointPillarScatter"), ("temporal_name", "ConvGRU"),
+    ("backbone3d_name", "VoxelBackBone8x"), ("temporal_name", "ConvGRU"),
     ("pfe_name", "VoxelSetAbstraction"), ("wrap_head_name", "PartWraper")])
 def test_constructor_names_the_module_it_lacks(field, name):
     with pytest.raises(KeyError, match=f"'{name}' is not ported yet"):
         VoxelRCNN(**{field: name})
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(vfe_name="PillarVFE", with_roi_head=False), "requires MAP_TO_BEV PointPillarScatter"),
+    (dict(vfe_name="PillarVFE", map_to_bev_name="PointPillarScatter"), "needs a 3D backbone"),
+    (dict(backbone3d_name=None), "needs a BACKBONE_3D")])
+def test_constructor_checks_the_topology_as_jax_does(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        VoxelRCNN(**kwargs)
+    with pytest.raises(ValueError, match=match):
+        jdet.VoxelRCNN(**kwargs).init(jax.random.PRNGKey(0), {"points": jnp.zeros((1, 8, 5))})
 
 
 def test_model_name_not_ported():

@@ -343,3 +343,16 @@ def test_written_sequence_layout(sequence):
     with open(seq_dir / "segment-0000_outline_C_PROTO.pkl", "rb") as f:
         labels = pickle.load(f)
     assert sorted(labels) == [0, 1, 2, 3] and labels[0]["outline_box"].shape == (6, 7)
+
+
+@pytest.mark.parametrize("n,c", [(1, 5), (2, 4), (1000, 5), (200_000, 5)])
+def test_shuffled_order_equals_generator_shuffle_of_the_rows(n, c):
+    """``dataset.shuffled_order`` gives the rows of ``Generator.shuffle`` on
+    the (n, C) array itself and leaves the generator in the same state."""
+    pts = np.random.default_rng(1).normal(size=(n, c)).astype(np.float32)
+    rows, idx = np.random.default_rng([2, n]), np.random.default_rng([2, n])
+    shuffled = pts.copy()
+    rows.shuffle(shuffled)
+    np.testing.assert_array_equal(pts[dataset.shuffled_order(idx, n)], shuffled)
+    assert rows.bit_generator.state == idx.bit_generator.state
+    assert rows.random() == idx.random()
