@@ -13,7 +13,9 @@ sparse tail; the evaluation CLI ``cpd_tpu_torch.tools.test`` and the
 training CLI ``cpd_tpu_torch.tools.train`` on the shipped
 voxel_rcnn_cproto_center.yaml (batch 4, 8 written frames); the anchor-head
 models of the DBSCAN, OYSTER and PointPillars yamls (predict, a batch-2
-step, the training CLI on OYSTER); the training step
+step, the training CLI on OYSTER); the pseudo-label factory's builder
+(PPScore, MFCF + C_PROTO labels, the gt database) on a written 20-frame
+drive and the training CLI on its labels; the training step
 of ``cpd_tpu_torch.parallel``
 (``VoxelRCNN.loss_step`` with ``mm=True``, batch 2, 64 label slots, backward,
 clip, adam_onecycle; sparse tail); and the gather-formulation probes of
@@ -22,7 +24,7 @@ raising on failure:
 
 1. card: needs CUDA; prints the card's name and power limit;
 2. build: compiles every kernel source under cpd_tpu_torch/csrc/ (A1, A2,
-   G1-G4) with nvcc for sm_90a, one process each, side by side, and prints
+   G1-G4, R1, R2) with nvcc for sm_90a, one process each, side by side, and prints
    what ptxas reports per kernel (registers a thread, spills; for each
    instance of G1-G4 apart, among G4's the transpose that G3 and G4 share)
    and the dynamic shared memory a block of A1, A2 and G1 asks for at the
@@ -145,6 +147,24 @@ raising on failure:
     ``--epochs 1 --debug_steps 2 --eval_after 1``: 2 steps of (21, 20, 21)
     launches, finite losses, result.pkl one finite record a frame; the CLI's
     phase means and each step's ms.
+15. the pseudo-label factory on the card (it runs right after phase 14), as
+    the builder CLI runs it: a drive of 20 frames of 200k points
+    (``make_lidar_sequence``: the ego about 1 m a frame, parked and moving
+    objects; depth cut from Waymo's ~198 frames) written with poses and no
+    labels; kernel R1 (PPScore's radius count) against its plain version on
+    the middle frame's 4 windows of 5 frames (exact counts, a second launch
+    bit-equal); ``create_ppscore`` with the R1 and R2 launches counted
+    around it (20 and 0); ``create_outline_boxes`` with the cproto dataset
+    yaml (MFCF + C_PROTO; R2 launches counted, none of R1), the largest
+    cloud it clusters recorded; kernel R2 (DBSCAN) against its plain version
+    on that cloud (labels equal, twice); ``create_track_groundtruth_database``
+    on the port's dataset. Gates: every frame's PPScore file (f16, finite),
+    labels of every frame with (n, 7) finite boxes, a track of
+    ``remove_short_track`` (2) frames or more, a prototype bank, the gt
+    database's schema. Prints boxes a frame, tracks, banks, the launches and
+    the seconds of each builder function and of each stage inside them;
+    then 2 steps of the training CLI on the shipped cproto yaml on those
+    labels and banks (finite losses).
 
 The last two lines of stdout are the card line and a JSON object; the line
 before them is the kernels JSON. For each use of A1 and A2 it gives the
@@ -158,7 +178,15 @@ G1-G4 ``launches`` counts the probe entry point's run, and the times and the
 bound are summed over one launch at each of the kernel's probes (``uses``
 lists them, and the 9 layer shapes beside A1). No single PyTorch call
 computes a gather-GEMM, so ``library_ms`` is null except for G4, the gather
-alone, where it is ``torch.index_select``'s time.
+alone, where it is ``torch.index_select``'s time. R1 and R2 (phase 15) give
+the launches of ``create_ppscore`` and ``create_outline_boxes``, the median
+ms of the launch alone (``ms``) and of the whole wrapper with its grid and
+sorts (``wrapper_ms``), the plain version's ms of one call at the checked
+shapes, and a bound from those inputs: bytes at 3.35 TB/s against the pairs
+the function needs at 8 operations each (R1: the neighbour pairs its counts
+hold; R2: the pairs within eps, each once, f64) over the CUDA cores' 67
+TFLOP/s f32 (34 f64), not the kernels' own walks, which test 3-6 times as
+many; ``library_ms`` is null (no PyTorch call computes either function).
 """
 import argparse
 import ast
@@ -178,6 +206,7 @@ import torch
 
 from cpd_tpu_torch.config import ConfigDict, cfg_from_list, cfg_from_yaml_file
 from cpd_tpu_torch.datasets import build_dataloader
+from cpd_tpu_torch.datasets.box_np import points_in_boxes_mask_fast
 from cpd_tpu_torch.datasets.registry import build_dataset
 from cpd_tpu_torch.models import build_network
 from cpd_tpu_torch.models.backbone3d import build_branch_rulebooks, stage_grids
@@ -190,6 +219,8 @@ from cpd_tpu_torch.ops import gather_probes as gp
 from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch import parallel
 from cpd_tpu_torch.ops import nms
+from cpd_tpu_torch.ops import dbscan as r2
+from cpd_tpu_torch.ops import radius as r1
 from cpd_tpu_torch.ops.voxelizer import voxelize_batch
 from cpd_tpu_torch.parallel import init_state, make_train_step, step_generator
 from cpd_tpu_torch.probes import gather as probes
@@ -199,8 +230,14 @@ from cpd_tpu_torch.tools import train as train_cli
 from cpd_tpu_torch.tools.strip_checkpoint import strip_checkpoint
 from cpd_tpu_torch.tools.train import device_batch
 from cpd_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from cpd_tpu_torch.utils.common import PhaseTimer
 from cpd_tpu_torch.utils.device import place
-from cpd_tpu_torch.utils.synthetic import (make_lidar_frame, make_tiny_train_batch,
+from cpd_tpu_torch.utils.yaml_subset import load_file
+from cpd_tpu_torch.datasets import waymo_unsupervised as builder
+from cpd_tpu_torch.unsupervised import outline
+from cpd_tpu_torch.unsupervised.ppscore import frame_windows
+from cpd_tpu_torch.utils.synthetic import (make_lidar_frame, make_lidar_sequence,
+                                           make_tiny_train_batch,
                                            make_train_batch, write_gt_database,
                                            write_waymo_sequence)
 from cpd_tpu_torch.utils.weights import seeded_state_dict
@@ -263,6 +300,21 @@ ANCHOR_TIMED_LOOPS = 3
 OYSTER_FRAMES = 4
 EVAL_FRAMES = 8
 EVAL_SEQ = "segment-0000"
+# phase 15, the pseudo-label factory: a drive of 20 frames at the full frame
+# width, the cproto dataset yaml, f32 / f64 peaks of the CUDA cores
+FACTORY_FRAMES = 20
+# phase 15's gates on the factory's output: the share of label boxes that
+# hold a point of their own frame, the margin (m) around a class's largest
+# label box that holds its prototype banks' points, and the RoI and proto
+# losses of 2 training steps at random weights (on labels placed on the
+# proposals, phase 9, the same model reads at most 86)
+FACTORY_BOXES_WITH_POINTS = 0.99
+FACTORY_BANK_MARGIN = 0.5
+FACTORY_LOSS_BOUND = 1e3
+FACTORY_LOSS_BOUNDED = ("rcnn_reg0", "rcnn_reg1", "proto_loss", "rcnn_cls0", "rcnn_cls1")
+CPROTO_DATA_YAML = "tools/cfgs/dataset_configs/waymo_unsupervised_cproto.yaml"
+F32_CORE_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores (NVIDIA's H100 data sheet)
+F64_CORE_FLOPS = 34e12   # H100 SXM, f64 outside the tensor cores (NVIDIA's H100 data sheet)
 
 
 def card_line() -> str:
@@ -2286,6 +2338,295 @@ def anchor_phase(dev, card):
     return kernels
 
 
+def timed_once_ms(fn):
+    """(result, device ms) of one call of ``fn``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def grid_pair_tests(points, cell, groups=1, group=None):
+    """Pair tests of a 27-cell grid walk, as kernels R1 and R2 make them:
+    for every point of ``points`` (queries) and every group (R1's windows)
+    the support points in the 9 column runs of its cell, with the support
+    ``group`` (None: the points themselves) sorted by (group, cell)."""
+    support, ids = (points, None) if group is None else group
+    (qcell, scell), dims = r1.grid_cells((points, support), cell)
+    keys, _ = torch.sort(r1.cell_keys(scell, dims, ids))
+    total = 0
+    for w in range(groups):
+        g = qcell[:, 0] + w * dims[0]
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                base = ((g + dx) * dims[1] + qcell[:, 1] + dy) * dims[2] + qcell[:, 2]
+                total += int((torch.searchsorted(keys, base + 2)
+                              - torch.searchsorted(keys, base - 1)).sum())
+    return total
+
+
+def factory_entry(name, path, source, replaces, launches, ms, wrapper_ms, plain_ms, nbytes, ops,
+                  flops):
+    """One entry of the kernels line for R1 or R2: ``ms`` the launch alone,
+    ``wrapper_ms`` with the wrapper's grid and sorts; the bound is the larger
+    of ``nbytes`` at the memory rate and ``ops`` (the pairs the function
+    needs, not the kernel's walk) at ``flops``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / flops * 1e3
+    return {"name": name, "path": path, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": 0.0, "ms": ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+
+def factory_r1_check(frames, poses, dev, card):
+    """Kernel R1 against its plain version on the windows of the middle
+    frame (every frame of the drive in windows of 5, as ``save_ppscore``
+    gives them): exact counts, a second launch bit-equal. Returns (launch
+    ms, wrapper ms, plain ms, bytes, operations): 8 f32 operations for each
+    neighbour pair that the counts hold."""
+    i = len(frames) // 2
+    query, support, ids, w = (torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+                              for a in frame_windows(frames[i][:, :3], poses[i], frames, poses))
+    run = lambda: r1.radius_count(query, support, ids, w, 0.3)
+    out, again = run(), run()
+    ref, plain_ms = timed_once_ms(lambda: r1.radius_count_reference(query, support, ids, w, 0.3))
+    if not (torch.equal(out, ref) and torch.equal(out, again)):
+        raise AssertionError(f"R1: counts differ from the plain version on "
+                             f"{int((out != ref).any(1).sum())} queries (or between launches)")
+    ops = r1.radius_operands(query, support, ids, w, 0.3)
+    ms, wrapper_ms = paired_median_ms(lambda: r1.radius_launch(ops), run)
+    tests = grid_pair_tests(query, 0.3 * r1.CELL_MARGIN, w, (support, ids))
+    pairs = int(out.sum())
+    nbytes = query.numel() * 4 + support.numel() * 4 + ids.numel() * 4 + out.numel() * 4
+    print(f"R1 radius_count ({card}): {query.shape[0]} queries, {support.shape[0]} support "
+          f"points in {w} windows, {pairs} neighbour pairs, {tests} pair tests in the kernel's "
+          f"walk ({tests / pairs:.2f} a pair); exact and bit-equal twice; launch {ms:.3f} ms, "
+          f"wrapper {wrapper_ms:.3f} ms (grid and sorts included; medians of 5), plain "
+          f"{plain_ms:.1f} ms (one call)", flush=True)
+    return ms, wrapper_ms, plain_ms, nbytes, 8.0 * pairs
+
+
+def factory_r2_check(cloud, dev, card):
+    """Kernel R2 against its plain version on ``cloud`` = (points, eps,
+    min_samples), the largest cloud that ``create_outline_boxes`` clustered:
+    labels equal on every point, twice. Returns (launch ms, wrapper ms, plain
+    ms, bytes, operations): 8 f64 operations for each pair within eps,
+    counted once."""
+    pts, eps, min_samples = cloud
+    run = lambda: r2.dbscan_labels(pts, eps, min_samples)
+    out, again = run(), run()
+    ref, plain_ms = timed_once_ms(lambda: r2.dbscan_reference(pts, eps, min_samples))
+    if not (torch.equal(out, ref) and torch.equal(out, again)):
+        raise AssertionError(f"R2: labels differ from the plain version on "
+                             f"{int((out != ref).sum())} of {len(out)} points (or between launches)")
+    ops = r2.dbscan_operands(pts, eps)
+    ms, wrapper_ms = paired_median_ms(lambda: r2.dbscan_launch(ops, min_samples), run)
+    tests = grid_pair_tests(pts, eps * r1.CELL_MARGIN)
+    pairs = (len(r2.neighbour_pairs(pts, eps)[0]) - len(pts)) // 2
+    nbytes = pts.numel() * 8 + out.numel() * 4
+    print(f"R2 dbscan ({card}): the largest cloud of create_outline_boxes: {len(pts)} points, "
+          f"eps {eps}, min_samples {min_samples}: {int(out.max()) + 1} clusters, "
+          f"{int((out < 0).sum())} noise, {pairs} pairs within eps, {tests} pair tests a walk "
+          f"of the kernel (it walks three times: count, union, label); equal to plain on every "
+          f"point, bit-equal twice; launch {ms:.3f} ms, wrapper {wrapper_ms:.3f} ms (medians of "
+          f"5), plain {plain_ms:.1f} ms (one call)", flush=True)
+    return ms, wrapper_ms, plain_ms, nbytes, 8.0 * pairs
+
+
+class LargestCloud:
+    """While active, ``outline.dbscan_labels`` (the call the factory's
+    clustering makes) keeps the largest (points, eps, min_samples) it is
+    given in ``self.cloud``."""
+
+    def __enter__(self):
+        self.cloud, self.saved = None, outline.dbscan_labels
+
+        def recording(points, eps, min_samples):
+            if self.cloud is None or len(points) > len(self.cloud[0]):
+                self.cloud = (points.clone(), eps, min_samples)
+            return self.saved(points, eps, min_samples)
+
+        outline.dbscan_labels = recording
+        return self
+
+    def __exit__(self, *exc):
+        outline.dbscan_labels = self.saved
+
+
+def check_factory_outputs(seq_dir, seq, n_frames, n_points, min_track):
+    """The files ``WaymoUnsupervisedDataset`` reads, with their schema, and
+    their frames: at least ``FACTORY_BOXES_WITH_POINTS`` of the label boxes
+    hold a point of their own frame (a box the tracker carried past its
+    points may hold none), and every prototype bank point lies in the box
+    frame, within its class's largest label box grown by
+    ``FACTORY_BANK_MARGIN`` m on every side. Returns (boxes a frame, tracks
+    of ``min_track`` frames or more, banks)."""
+    for i in range(n_frames):
+        pp = np.load(seq_dir / "ppscore" / f"{i:04d}.npy")
+        if pp.dtype != np.float16 or pp.shape != (n_points,) or not np.isfinite(pp).all():
+            raise AssertionError(f"factory: ppscore {i:04d} {pp.dtype} {pp.shape} or not finite")
+    with open(seq_dir / f"{seq}_outline_C_PROTO.pkl", "rb") as f:
+        labels = pickle.load(f)
+    with open(seq_dir / f"{seq}_outline_MFCF_CSS_proto.pkl", "rb") as f:
+        banks = pickle.load(f)["proto_points_set"]
+    if sorted(labels) != list(range(n_frames)):
+        raise AssertionError(f"factory: label frames {sorted(labels)}")
+    frames_of, with_points = {}, 0
+    for i, lab in labels.items():
+        n = len(lab["outline_box"])
+        shapes = [np.shape(lab[k]) for k in ("outline_cls", "outline_ids", "outline_score",
+                                              "outline_proto_id")]
+        if lab["outline_box"].shape != (n, 7) or not np.isfinite(lab["outline_box"]).all() \
+                or shapes != [(n,)] * 4:
+            raise AssertionError(f"factory: frame {i} labels {lab['outline_box'].shape} {shapes}")
+        for tid in lab["outline_ids"]:
+            frames_of[int(tid)] = frames_of.get(int(tid), 0) + 1
+        if n:
+            pts = np.load(seq_dir / f"{i:04d}.npy")[:, :3]
+            with_points += int(points_in_boxes_mask_fast(pts, lab["outline_box"]).any(1).sum())
+    n_banks = sum(len(v) for v in banks.values())
+    long_tracks = sum(1 for v in frames_of.values() if v >= min_track)
+    boxes = np.concatenate([lab["outline_box"] for lab in labels.values()])
+    names = np.concatenate([lab["outline_cls"] for lab in labels.values()])
+    scores = np.concatenate([lab["outline_score"] for lab in labels.values()])
+    counts = {str(k): int(v) for k, v in zip(*np.unique(names, return_counts=True))}
+    lo, hi = ([f"{v:.2f}" for v in f(boxes[:, 3:6], axis=0)] for f in (np.min, np.max))
+    half = {c: boxes[names == c, 3:6].max(0) / 2 + FACTORY_BANK_MARGIN for c in counts}
+    reach = {c: np.max([np.abs(np.asarray(b["points"])).max(0) for b in v.values()
+                        if len(b["points"])], axis=0) for c, v in banks.items() if v}
+    print(f"factory labels: {counts}; l, w, h from {lo} to {hi} m; CSS scores "
+          f"{float(scores.min()):.3f}-{float(scores.max()):.3f}; "
+          f"{int(sum((lab['outline_proto_id'] >= 0).sum() for lab in labels.values()))} boxes "
+          f"with a prototype; {with_points} of {len(boxes)} boxes hold a point of their frame; "
+          f"bank points reach " + ", ".join(
+              f"{c} {'/'.join(f'{v:.2f}' for v in r)} (its largest label box "
+              f"{'/'.join(f'{v:.2f}' for v in half[c] - FACTORY_BANK_MARGIN)})"
+              for c, r in reach.items() if c in half) + " m", flush=True)
+    if long_tracks == 0 or n_banks == 0 or not all(
+            np.asarray(b["points"]).ndim == 2 and np.asarray(b["points"]).shape[1] == 3
+            for v in banks.values() for b in v.values()):
+        raise AssertionError(f"factory: {long_tracks} tracks of {min_track}+ frames, "
+                             f"{n_banks} prototype banks")
+    if with_points < FACTORY_BOXES_WITH_POINTS * len(boxes):
+        raise AssertionError(f"factory: only {with_points} of {len(boxes)} label boxes hold a "
+                             f"point of their frame")
+    outside = [c for c, r in reach.items() if c not in half or (r > half[c]).any()]
+    if outside:
+        raise AssertionError(f"factory: bank points of {outside} outside their class's largest "
+                             f"label box + {FACTORY_BANK_MARGIN} m")
+    return [len(labels[i]["outline_box"]) for i in range(n_frames)], long_tracks, n_banks
+
+
+def factory_phase(dev, card):
+    """Phase 15, the pseudo-label factory on the card, as the builder CLI
+    runs it: a drive of ``FACTORY_FRAMES`` frames of 200k points written
+    with poses and no labels; R1 against its plain version on one frame's
+    windows; ``create_ppscore`` (R1 launches counted around it);
+    ``create_outline_boxes`` with the cproto dataset yaml (MFCF + C_PROTO;
+    R2 launches counted); R2 against its plain version on the largest cloud
+    that it clustered;
+    ``create_track_groundtruth_database`` on the port's dataset; then the
+    training CLI for 2 steps on those labels and prototype banks. Gates: the
+    four outputs with their schema, a track of ``remove_short_track`` (2)
+    frames or more, a prototype bank, nonzero R1 and R2 launches, finite
+    losses. Returns the kernels-line entries of R1 and R2."""
+    t0 = time.perf_counter()
+    cfg = load_file(CPROTO_DATA_YAML)
+    min_track = int(cfg["GeneratorConfig"].get("remove_short_track", 2))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        frames, poses = make_lidar_sequence(0, n_frames=FACTORY_FRAMES, n_points=N_POINTS)
+        write_waymo_sequence(tmp, EVAL_SEQ, frames, poses=poses, labels=False)
+        root = tmp / "waymo_processed_data"
+        seq_dir = root / EVAL_SEQ
+        t_write = time.perf_counter() - t0
+        r1_numbers = factory_r1_check(frames, poses, dev, card)
+        del frames
+
+        stages = {}
+        r1.radius_count.launches = r2.dbscan_labels.launches = 0
+        timer = PhaseTimer()
+        t1 = time.perf_counter()
+        builder.create_ppscore(root, [EVAL_SEQ], device=dev, timer=timer)
+        stages["create_ppscore"] = time.perf_counter() - t1
+        pp_launches = (r1.radius_count.launches, r2.dbscan_labels.launches)
+        pp_stages = dict(timer.totals)
+
+        r1.radius_count.launches = r2.dbscan_labels.launches = 0
+        timer = PhaseTimer()
+        t1 = time.perf_counter()
+        with LargestCloud() as largest:
+            builder.create_outline_boxes(root, [EVAL_SEQ], cfg, device=dev, timer=timer)
+        stages["create_outline_boxes"] = time.perf_counter() - t1
+        ob_launches = (r1.radius_count.launches, r2.dbscan_labels.launches)
+        ob_stages = dict(timer.totals)
+        r2_numbers = factory_r2_check(largest.cloud, dev, card)
+        if pp_launches[0] != FACTORY_FRAMES or pp_launches[1] or ob_launches[0] \
+                or ob_launches[1] == 0:
+            raise AssertionError(f"factory: (R1, R2) launches {pp_launches} in create_ppscore "
+                                 f"(want ({FACTORY_FRAMES}, 0)), {ob_launches} in "
+                                 f"create_outline_boxes (want (0, > 0))")
+
+        sets = ["DATA_CONFIG.DATA_PATH", str(tmp), "DATA_CONFIG.SAMPLED_INTERVAL.train", "1",
+                "DATA_CONFIG.SAMPLED_INTERVAL.test", "1"]
+        model_cfg = cfg_from_list(sets, cfg_from_yaml_file(EVAL_YAML, ConfigDict()))
+        dataset = build_dataset(model_cfg.DATA_CONFIG, model_cfg.CLASS_NAMES, True, str(tmp))
+        t1 = time.perf_counter()
+        db = builder.create_track_groundtruth_database(dataset, root / "track_dbinfos_train.pkl")
+        stages["create_track_groundtruth_database"] = time.perf_counter() - t1
+        with open(root / "track_dbinfos_train.pkl", "rb") as f:
+            db_pkl = pickle.load(f)
+        if {k: len(v) for k, v in db_pkl.items()} != db or not all(
+                {"name", "box3d_lidar", "points", "num_points_in_gt"} <= set(r)
+                for v in db_pkl.values() for r in v):
+            raise AssertionError(f"factory: track_dbinfos_train.pkl {db}")
+        per_frame, long_tracks, n_banks = check_factory_outputs(
+            seq_dir, EVAL_SEQ, FACTORY_FRAMES, N_POINTS, min_track)
+        sample = dataset[0]
+        print(f"factory ({card}): {FACTORY_FRAMES} frames of {N_POINTS} points, written in "
+              f"{t_write:.1f} s; boxes a frame {per_frame}; {long_tracks} tracks of "
+              f"{min_track}+ frames; {n_banks} prototype banks; gt database {db}; launches (R1, "
+              f"R2): create_ppscore {pp_launches}, create_outline_boxes {ob_launches}; "
+              f"training sample 0: {int(sample['gt_valid'].sum())} labelled boxes", flush=True)
+        print("factory stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+              + "; inside create_ppscore: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                        pp_stages.items())
+              + "; inside create_outline_boxes: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                              ob_stages.items()), flush=True)
+
+        with CLISteps() as steps:
+            steps.run = "factory"
+            state = train_cli.main(["--cfg_file", EVAL_YAML, "--output_dir", str(tmp / "out"),
+                                    "--epochs", "1", "--debug_steps", "2", "--log_every", "1",
+                                    "--set", *sets])
+            torch.cuda.synchronize()
+        bad = [(k, v) for r in steps.rows for k, v in r["tb"].items() if not math.isfinite(v)]
+        big = [(k, r["tb"][k]) for r in steps.rows for k in FACTORY_LOSS_BOUNDED
+               if abs(r["tb"][k]) > FACTORY_LOSS_BOUND]
+        if state.step != 2 or bad or big or any(r["tb"]["skipped_nonfinite"]
+                                                for r in steps.rows):
+            raise AssertionError(f"factory: training on the factory's labels: {state.step} "
+                                 f"steps, non-finite {bad}, above {FACTORY_LOSS_BOUND}: {big}")
+        print(f"factory training ({card}): 2 steps of the train CLI on the factory's labels and "
+              f"prototype banks, each " + ", ".join(f"{r['ms']:.1f}" for r in steps.rows)
+              + " ms; last tb: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                               steps.rows[-1]["tb"].items()), flush=True)
+    print(f"factory phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return [
+        factory_entry("radius_count", "factory: create_ppscore",
+                      "cpd_tpu_torch/csrc/radius_count.cu",
+                      "cpd_tpu/unsupervised/ppscore.py:83 (ppscore_jax, a JAX op chain; no "
+                      "pl.pallas_call)", pp_launches[0], *r1_numbers, F32_CORE_FLOPS),
+        factory_entry("dbscan", "factory: create_outline_boxes", "cpd_tpu_torch/csrc/dbscan.cu",
+                      "cpd_tpu/unsupervised/outline.py:32 (dbscan_cluster, sklearn on the "
+                      "host; no pl.pallas_call)", ob_launches[1], *r2_numbers,
+                      F64_CORE_FLOPS),
+    ]
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     parser.add_argument("--determinism", type=int, metavar="RUNS",
@@ -2351,6 +2692,8 @@ def main():
     kernels += train_cli_phase(dev, card)
     torch.cuda.empty_cache()
     kernels += anchor_phase(dev, card)
+    torch.cuda.empty_cache()
+    kernels += factory_phase(dev, card)
     torch.cuda.empty_cache()
 
     kernels += training_phase(dev)

@@ -14,19 +14,33 @@ Parity with cpd/datasets/waymo_unsupervised/waymo_unsupervised_dataset.py:
     background)
   - generate_prediction_dicts (:504): LABEL_OFFSET z-shift for Vehicle, TTA
     backward
-The dataset-building functions of the JAX module (create_waymo_infos, create_ppscore,
-create_outline_boxes, create_track_groundtruth_database) run the pseudo-label
-factory, which is not ported yet; neither is the official Waymo metric
-(``evaluation.official_available`` is False), so ``evaluation`` scores with
-``evaluation.waymo_style_eval``.
+The official Waymo metric is not ported (``evaluation.official_available``
+is False), so ``evaluation`` scores with ``evaluation.waymo_style_eval``.
+
+The dataset builder (reference :653-898) runs the pseudo-label factory
+(``cpd_tpu_torch.unsupervised``) over processed sequences: ``create_ppscore``,
+``create_outline_boxes``, ``create_track_groundtruth_database`` and
+``create_waymo_infos``, and the command line
+
+    python -m cpd_tpu_torch.datasets.waymo_unsupervised --func create_ppscore \
+        --cfg_file tools/cfgs/dataset_configs/waymo_unsupervised_cproto.yaml \
+        --processed_data_path <dir of sequences> [--device cpu] [--workers N]
+
+(``--func create_outline_boxes`` next; the yaml is read by
+``utils.yaml_subset``). The factory's two neighbour searches run on the CUDA
+card unless ``--device cpu`` / ``device="cpu"`` is asked for; on the card the
+sequences run one after another in this process (a forked worker cannot use
+the parent's CUDA context), on the CPU in a pool of ``spawn`` workers.
 """
 from __future__ import annotations
 
 import pickle
+from functools import partial
 from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from .box_np import points_in_boxes_mask_fast
 from .dataset import DatasetTemplate
@@ -276,3 +290,134 @@ class WaymoUnsupervisedDataset(DatasetTemplate):
                 "difficulty": np.asarray(ann.get("difficulty", [])),
             })
         return annos
+
+
+# ---------------------------------------------------------------------------
+# builder CLI (create_waymo_infos pipeline, reference :653-898)
+# ---------------------------------------------------------------------------
+
+def _each_sequence(fn, items, workers: int, device):
+    """``fn(item, device=...)`` for every item: in this process on the card
+    (or with one worker), else in a pool of ``spawn`` workers on the CPU."""
+    from ..utils.device import resolve_device
+
+    device = resolve_device(device)
+    if device.type == "cuda" or workers <= 1:
+        return [fn(item, device=device) for item in items]
+    import multiprocessing as mp
+    import os
+
+    threads = max(1, (os.cpu_count() or 1) // workers)  # no oversubscribed torch threads
+    with mp.get_context("spawn").Pool(workers, torch.set_num_threads, (threads,)) as pool:
+        return pool.map(partial(fn, device=str(device)), items)
+
+
+def create_ppscore(data_path: Path, seqs: List[str], workers: int = 16, device=None,
+                   timer=None):
+    """PPScore of every frame of every sequence (``ppscore/NNNN.npy``),
+    counted by kernel R1 on ``device`` (default: the CUDA card)."""
+    from ..unsupervised.driver import save_ppscore
+
+    _each_sequence(partial(save_ppscore, timer=timer), [Path(data_path) / s for s in seqs],
+                   workers, device)
+
+
+def create_outline_boxes(data_path: Path, seqs: List[str], config: dict, workers: int = 16,
+                         device=None, timer=None):
+    """Pseudo-labels and prototype banks of every sequence
+    (``<seq>_outline_<Refiner|Init>.pkl``, ``<seq>_outline_<Init>_CSS_proto.pkl``),
+    clustered by kernel R2 on ``device`` (default: the CUDA card)."""
+    fn = partial(_outline_one, data_path=data_path, config=config, timer=timer)
+    _each_sequence(fn, seqs, workers, device)
+
+
+def _outline_one(seq, data_path, config, device=None, timer=None):
+    from ..unsupervised.driver import compute_outline_box
+
+    return compute_outline_box(seq, data_path, config, device=device, timer=timer)
+
+
+def create_track_groundtruth_database(dataset: WaymoUnsupervisedDataset, out_path: Path,
+                                      min_points: int = 5):
+    """Tracked-object db for gt sampling (reference :653; the pkl schema is
+    documented in augmentor.DataBaseSampler)."""
+    db: Dict[str, list] = {}
+    for rec in dataset.infos:
+        seq, idx = rec["sequence_name"], rec["sample_idx"]
+        label = dataset._get_labels(seq)[idx]
+        pts = dataset.get_lidar(seq, idx)
+        boxes = np.asarray(label["outline_box"]).reshape(-1, 7)
+        names = np.asarray(label["outline_cls"]).reshape(-1)
+        masks = points_in_boxes_mask_fast(pts[:, :3], boxes)
+        for i, (b, n) in enumerate(zip(boxes, names)):
+            obj = pts[masks[i]]
+            if len(obj) < min_points or str(n) not in dataset.class_names:
+                continue
+            db.setdefault(str(n), []).append({
+                "name": str(n), "box3d_lidar": b.astype(np.float32),
+                "points": obj.astype(np.float32), "num_points_in_gt": len(obj),
+                "sequence_name": seq, "sample_idx": idx,
+            })
+    with open(out_path, "wb") as f:
+        pickle.dump(db, f)
+    return {k: len(v) for k, v in db.items()}
+
+
+def create_waymo_infos(raw_data_path, processed_path, seqs=None, config=None,
+                       workers: int = 16, dataset: WaymoUnsupervisedDataset = None,
+                       device=None, timer=None):
+    """Full builder pipeline (reference :792 create_waymo_infos): raw
+    TFRecords -> processed npy/pkl -> PPScore -> outline labels -> gt db.
+    The port has no TFRecord reader (``waymo_open_dataset`` is installed on
+    neither machine), so, as the JAX function does without that package, it
+    converts nothing and starts from the processed sequences ``seqs``
+    (default: the names of the TFRecords under ``raw_data_path``)."""
+    processed_path = Path(processed_path)
+    if seqs is None:
+        seqs = sorted(p.name.replace(".tfrecord", "")
+                      for p in Path(raw_data_path).glob("*.tfrecord"))
+    create_ppscore(processed_path, seqs, workers, device, timer)
+    create_outline_boxes(processed_path, seqs, config or {}, workers, device, timer)
+    if dataset is not None:
+        create_track_groundtruth_database(
+            dataset, processed_path / "track_dbinfos_train.pkl")
+
+
+def main(argv=None):
+    import argparse
+    import time
+
+    from ..utils.common import PhaseTimer
+    from ..utils.yaml_subset import load_file
+
+    p = argparse.ArgumentParser(description="Waymo pseudo-label dataset builder "
+                                "(reference CLI: python -m cpd.datasets...)")
+    p.add_argument("--func", default="create_waymo_infos",
+                   choices=["create_waymo_infos", "create_ppscore", "create_outline_boxes"])
+    p.add_argument("--cfg_file", required=True)
+    p.add_argument("--raw_data_path", default=None)
+    p.add_argument("--processed_data_path", required=True)
+    p.add_argument("--workers", type=int, default=16)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the factory's kernels (default: the CUDA card)")
+    args = p.parse_args(argv)
+    cfg = load_file(args.cfg_file)
+    timer = PhaseTimer()
+    t0 = time.perf_counter()
+    if args.func == "create_waymo_infos":
+        create_waymo_infos(args.raw_data_path, args.processed_data_path,
+                           config=cfg, workers=args.workers, device=args.device, timer=timer)
+    else:
+        seqs = sorted(q.name for q in Path(args.processed_data_path).iterdir() if q.is_dir())
+        if args.func == "create_ppscore":
+            create_ppscore(Path(args.processed_data_path), seqs, args.workers, args.device, timer)
+        else:
+            create_outline_boxes(Path(args.processed_data_path), seqs, cfg, args.workers,
+                                 args.device, timer)
+    print(f"{args.func}: {time.perf_counter() - t0:.1f} s; stages (s, this process): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in timer.totals.items()))
+    return timer.totals
+
+
+if __name__ == "__main__":
+    main()

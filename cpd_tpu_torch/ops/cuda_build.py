@@ -24,7 +24,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 KERNELS = ("gather_gemm", "gather_gemm_dw", "gather_gemm_flat", "gather_gemm_per_tap",
-           "lane_gather_gemm", "lane_gather")
+           "lane_gather_gemm", "lane_gather", "radius_count", "dbscan")
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in KERNELS}
 # headers that the sources include (part of every library's key)
 HEADERS = (_PKG / "csrc" / "gather_common.cuh", _PKG / "csrc" / "lane_common.cuh")

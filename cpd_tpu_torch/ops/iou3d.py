@@ -91,14 +91,22 @@ def _overlap_bev_corners(ca, cb):
 
 def boxes_overlap_bev(boxes_a, boxes_b):
     """(N, 7), (M, 7) -> (N, M) rotated BEV overlap areas, in row chunks
-    that bound the (rows, M, 24, 24) hull tensors."""
+    that bound the (rows, M, 24, 24) hull tensors, each at most the smaller
+    footprint ``dx * dy``. That bound matters for a box narrower than the
+    f32 spacing at its place (a proposal of 1e-8 m at 70 m): its corners
+    coincide, every point passes the inside test of its edges of length 0,
+    and the candidate hull spans the other box; the JAX package's overlap
+    (no bound) then gives such a pair an IoU of millions."""
     ca = boxes_to_corners_bev(boxes_a)
     cb = boxes_to_corners_bev(boxes_b)
     rows = max(1, _PAIR_CHUNK_ELEMS // max(1, cb.shape[0] * 24 * 24))
     if ca.shape[0] == 0:
         return ca.new_zeros((0, cb.shape[0]))
-    return torch.cat([_overlap_bev_corners(ca[i:i + rows], cb)
-                      for i in range(0, ca.shape[0], rows)], dim=0)
+    overlap = torch.cat([_overlap_bev_corners(ca[i:i + rows], cb)
+                         for i in range(0, ca.shape[0], rows)], dim=0)
+    area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
+    area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
+    return torch.minimum(overlap, torch.minimum(area_a, area_b))
 
 
 def boxes_iou_bev(boxes_a, boxes_b):

@@ -7,9 +7,9 @@ several result.pkl dumps such as TTA passes or model ensembles).
         [--device cpu]
 
 The fusion runs on the CUDA card; ``--device cpu`` asks for the CPU, and
-without a card and without it the tool raises. The JAX tool's
-``merge_detections_tracking`` needs the pseudo-label factory's Kalman
-tracker, which is not ported yet.
+without a card and without it the tool raises. ``merge_detections_tracking``
+smooths one result.pkl over its sequence with the pseudo-label factory's
+Kalman tracker (``unsupervised.tracker.TrackSmooth``, NumPy on the host).
 """
 from __future__ import annotations
 
@@ -58,6 +58,29 @@ def merge_result_files(paths, iou_thresh: float = 0.7, device=None):
             "name": np.asarray([inv[int(l)] for l in flabels.cpu().numpy()[m]]),
         })
     return merged
+
+
+def merge_detections_tracking(result_pkl, out_pkl, match_dist: float = 3.0,
+                              min_track_len: int = 2):
+    """Sequence-level detection smoothing via the Kalman tracker
+    (merge_detections_tracking.py capability): track per-frame detections,
+    re-emit smoothed track boxes with track-max scores."""
+    from ..unsupervised.tracker import TrackSmooth
+
+    with open(result_pkl, "rb") as f:
+        dets = pickle.load(f)
+    boxes = [np.asarray(d["boxes_lidar"]).reshape(-1, 7) for d in dets]
+    scores = [np.asarray(d["score"]).reshape(-1) for d in dets]
+    sm = TrackSmooth({"match_dist": match_dist}, min_track_len)
+    sm.tracking(boxes, scores)
+    out = []
+    for f_i, d in enumerate(dets):
+        b, names, ids, s = sm.get_current_frame_objects_and_cls(f_i)
+        out.append({**d, "boxes_lidar": b.astype(np.float32), "score": np.asarray(s, np.float32),
+                    "name": names, "track_ids": ids})
+    with open(out_pkl, "wb") as f:
+        pickle.dump(out, f)
+    return out
 
 
 def average_checkpoints(ckpt_paths, out_path):

@@ -103,3 +103,9 @@ class PhaseTimer:
 
     def summary(self):
         return {k: self.totals[k] / max(self.counts[k], 1) for k in self.totals}
+
+
+def timed(timer, name: str):
+    """``timer.phase(name)`` of a ``PhaseTimer``, or no timing when
+    ``timer`` is None."""
+    return timer.phase(name) if timer is not None else contextlib.nullcontext()

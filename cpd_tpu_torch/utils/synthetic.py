@@ -161,6 +161,98 @@ def make_lidar_frame(rng: np.random.Generator, n_points: int = 200_000,
     return out[perm], np.ones(out.shape[0], bool)
 
 
+def _face_patch(rng, origin_xy, normal_az, width, height, count):
+    """About ``count`` points on a whole vertical face: a grid spread over its
+    full width and height (the spacing follows the count), 2 cm of noise."""
+    nv = max(2, int(round(np.sqrt(count * height / max(width, 1e-3)))))
+    nu = max(2, count // nv)
+    u = (np.arange(nu) + 0.5) / nu * width - width / 2
+    v = (np.arange(nv) + 0.5) / nv * height
+    uu, vv = (a.ravel() for a in np.meshgrid(u, v, indexing="ij"))
+    c = uu.shape[0]
+    tx, ty = -np.sin(normal_az), np.cos(normal_az)
+    return np.stack([origin_xy[0] + tx * uu + rng.normal(0, 0.02, c),
+                     origin_xy[1] + ty * uu + rng.normal(0, 0.02, c),
+                     vv + rng.normal(0, 0.02, c)], axis=1)
+
+
+def _pose(x: float, y: float, yaw: float) -> np.ndarray:
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.array([[c, -s, 0.0, x], [s, c, 0.0, y], [0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0]])
+
+
+def make_lidar_sequence(seed: int, n_frames: int = 20, n_points: int = 200_000,
+                        r_max: float = 74.0, step: float = 1.0, n_parked: int = 60,
+                        n_moving: int = 20, n_walls: int = 24, extra_feats: int = 2):
+    """A drive of ``n_frames`` lidar frames in the style of ``make_lidar_frame``:
+    the ego moves ``step`` m a frame along x with a gentle yaw and sway, past
+    a static world of ``n_parked`` parked objects and ``n_walls`` walls and
+    poles, among ``n_moving`` objects that drive or walk along x. Every frame
+    is sampled anew in its sensor frame (beam rings of ground around the
+    sensor, grids over the two faces of every object within ``r_max`` m,
+    ~1/r^2 of the objects' points each, and over walls and poles), with the
+    split of ``make_lidar_frame`` (55% ground, 30% objects, 15% walls and
+    poles). Unlike ``make_lidar_frame``'s scan-order patches, a face is
+    covered whole at any budget, so the boxes fitted to an object's points
+    have its size. Returns (frames: list of
+    (n_points, 3 + extra_feats) float32, poses: list of (4, 4) sensor->world
+    float64). Every draw comes from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    sizes = np.array([[4.6, 2.0, 1.7], [0.8, 0.8, 1.8], [1.8, 0.8, 1.7]])
+    speeds = np.array([1.2, 0.15, 0.5])  # m a frame of a moving vehicle, pedestrian, cyclist
+    route = step * n_frames
+    n_obj_all = n_parked + n_moving
+    cls = rng.integers(0, 3, n_obj_all)
+    dims = sizes[cls] * rng.uniform(0.9, 1.15, (n_obj_all, 3))
+    centers = np.stack([rng.uniform(-r_max / 2, route + r_max / 2, n_obj_all),
+                        rng.choice([-1.0, 1.0], n_obj_all)
+                        * rng.uniform(4.0, 0.6 * r_max, n_obj_all)], axis=1)
+    heading = rng.uniform(0, 2 * np.pi, n_obj_all)
+    moving = np.arange(n_obj_all) >= n_parked
+    heading[moving] = np.where(rng.random(n_moving) < 0.5, 0.0, np.pi)
+    vel = np.zeros((n_obj_all, 2))
+    vel[moving] = (speeds[cls[moving]] * rng.uniform(0.7, 1.3, n_moving))[:, None] * np.stack(
+        [np.cos(heading[moving]), np.sin(heading[moving])], axis=1)
+    walls = [(rng.uniform(-r_max, route + r_max), rng.choice([-1.0, 1.0]) * rng.uniform(8.0, r_max),
+              rng.uniform(0, 2 * np.pi), rng.random() < 0.3, rng.uniform(4.0, 20.0),
+              rng.uniform(2.5, 3.9), rng.uniform(2.0, 3.9)) for _ in range(n_walls)]
+    n_ground = int(n_points * 0.55)
+    n_obj = int(n_points * 0.30)
+    n_clutter = n_points - n_ground - n_obj
+    frames, poses = [], []
+    for t in range(n_frames):
+        yaw = 0.05 * np.sin(t / 6.0)
+        pose = _pose(t * step, 0.3 * np.sin(t / 5.0), yaw)
+        rot, trans = pose[:2, :2], pose[:2, 3]
+        pts = [_ground_rings(rng, n_ground, 2.5, r_max)]
+        local = (centers + vel * t - trans) @ rot  # world -> sensor (R^T (p - T))
+        r = np.linalg.norm(local, axis=1)
+        seen = np.where((r > 3.0) & (r < r_max - 2.0))[0]
+        w_obj = 1.0 / np.maximum(r[seen], 5.0) ** 2
+        counts = np.maximum((w_obj / w_obj.sum() * n_obj).astype(int), 8)
+        for i, c in zip(seen, counts):
+            dx, dy, dz = dims[i]
+            h = heading[i] - yaw
+            pts.append(_face_patch(rng, local[i], h, dx, dz, c // 2))
+            pts.append(_face_patch(rng, local[i], h + np.pi / 2, dy, dz, c - c // 2))
+        wall_xy = (np.array([w[:2] for w in walls]) - trans) @ rot
+        wall_r = np.linalg.norm(wall_xy, axis=1)
+        near = np.where((wall_r > 3.0) & (wall_r < r_max))[0]
+        per_wall = n_clutter // max(len(near), 1)
+        for i in near:
+            _, _, az, pole, length, height, pole_h = walls[i]
+            pts.append(_face_patch(rng, wall_xy[i], az - yaw, 0.25 if pole else length,
+                                   pole_h if pole else height, per_wall))
+        xyz = np.concatenate(pts, axis=0)[:n_points].astype(np.float32)
+        if xyz.shape[0] < n_points:  # faces' grids round down: repeat samples
+            extra = xyz[rng.integers(0, xyz.shape[0], n_points - xyz.shape[0])]
+            xyz = np.concatenate([xyz, extra], axis=0)
+        feats = rng.uniform(0, 1, (n_points, extra_feats)).astype(np.float32)
+        frames.append(np.concatenate([xyz, feats], axis=1)[rng.permutation(n_points)])
+        poses.append(pose)
+    return frames, poses
+
+
 def make_tiny_train_batch(b: int = 2, p: int = 1024, n_gt: int = 8, seed: int = 0,
                           with_proto: bool = True):
     """A small training batch of numpy arrays for the tiny test configuration
@@ -241,7 +333,7 @@ def _class_boxes(rng, n, r_max):
 
 def write_waymo_sequence(data_root, seq: str, frames, seed: int = 0, n_boxes: int = 8,
                          r_max: float = 70.0, protos: bool = False,
-                         init_label_generator: str = "MFCF"):
+                         init_label_generator: str = "MFCF", labels: bool = True, poses=None):
     """Write ``frames`` (point arrays (N, >= 4): x y z intensity ...) as one
     sequence of the processed Waymo layout that
     ``datasets.waymo_unsupervised.WaymoUnsupervisedDataset`` reads, under
@@ -249,15 +341,19 @@ def write_waymo_sequence(data_root, seq: str, frames, seed: int = 0, n_boxes: in
 
     * ``NNNN.npy``: (N, 6) [x y z intensity elongation NLZ], elongation 0 and
       NLZ -1 (every point kept);
-    * ``<seq>.pkl``: per frame an identity pose and ``n_boxes`` gt boxes
-      (``annos``: boxes, names, points counted in each, difficulty 0);
-    * ``<seq>_outline_C_PROTO.pkl``: per frame ``n_boxes`` pseudo-label boxes
-      drawn the same way, scores in [0.3, 1] and prototype ids 0-2 (the
-      pseudo-label factory that makes these is not ported);
-    * with ``protos``, ``<seq>_outline_<init_label_generator>_CSS_proto.pkl``
-      (the yaml's InitLabelGenerator: MFCF, DBSCAN or OYSTER): three
-      prototype banks a class of 64 box-canonical points each (training mode
-      reads them).
+    * ``<seq>.pkl``: per frame its pose (``poses``, default the identity)
+      and, with ``labels``, ``n_boxes`` gt boxes (``annos``: boxes, names,
+      points counted in each, difficulty 0);
+    * with ``labels``, ``<seq>_outline_C_PROTO.pkl``: per frame ``n_boxes``
+      pseudo-label boxes drawn the same way, scores in [0.3, 1] and prototype
+      ids 0-2 (drawn labels for tests of the data layer and the CLIs; with
+      ``labels=False`` only frames and poses are written, and the
+      pseudo-label factory, ``cpd_tpu_torch.unsupervised``, makes the
+      labels);
+    * with ``protos`` (and ``labels``),
+      ``<seq>_outline_<init_label_generator>_CSS_proto.pkl`` (the yaml's
+      InitLabelGenerator: MFCF, DBSCAN or OYSTER): three prototype banks a
+      class of 64 box-canonical points each (training mode reads them).
 
     Every draw comes from ``numpy.random.default_rng([seed, frame])``.
     Returns the sequence directory."""
@@ -268,27 +364,34 @@ def write_waymo_sequence(data_root, seq: str, frames, seed: int = 0, n_boxes: in
 
     seq_dir = Path(data_root) / "waymo_processed_data" / seq
     seq_dir.mkdir(parents=True, exist_ok=True)
-    infos, labels = [], {}
+    infos, outline = [], {}
     for i, pts in enumerate(frames):
         rng = np.random.default_rng([seed, i])
         disk = np.zeros((len(pts), 6), np.float32)
         disk[:, :4] = pts[:, :4]
         disk[:, 5] = -1
         np.save(seq_dir / f"{i:04d}.npy", disk)
+        pose = np.eye(4) if poses is None else np.asarray(poses[i], np.float64)
+        if not labels:
+            infos.append({"pose": pose, "frame_id": f"{seq}_{i:03d}",
+                          "point_cloud": {"lidar_sequence": seq, "sample_idx": i}})
+            continue
         boxes, names = _class_boxes(rng, n_boxes, r_max)
         n_in = points_in_boxes_mask_np(disk[:, :3], boxes).sum(axis=1)
-        infos.append({"pose": np.eye(4), "frame_id": f"{seq}_{i:03d}",
+        infos.append({"pose": pose, "frame_id": f"{seq}_{i:03d}",
                       "point_cloud": {"lidar_sequence": seq, "sample_idx": i},
                       "annos": {"gt_boxes_lidar": boxes, "name": names,
                                 "num_points_in_gt": n_in, "difficulty": np.zeros(n_boxes)}})
         oboxes, onames = _class_boxes(rng, n_boxes, r_max)
-        labels[i] = {"outline_box": oboxes, "outline_cls": onames,
-                     "outline_score": rng.uniform(0.3, 1.0, n_boxes).astype(np.float32),
-                     "outline_proto_id": rng.integers(0, 3, n_boxes)}
+        outline[i] = {"outline_box": oboxes, "outline_cls": onames,
+                      "outline_score": rng.uniform(0.3, 1.0, n_boxes).astype(np.float32),
+                      "outline_proto_id": rng.integers(0, 3, n_boxes)}
     with open(seq_dir / f"{seq}.pkl", "wb") as f:
         pickle.dump(infos, f)
+    if not labels:
+        return seq_dir
     with open(seq_dir / f"{seq}_outline_C_PROTO.pkl", "wb") as f:
-        pickle.dump(labels, f)
+        pickle.dump(outline, f)
     if protos:
         rng = np.random.default_rng([seed, len(frames)])
         banks = {c: {pid: {"points": (rng.uniform(-0.5, 0.5, (64, 3)) * size).astype(np.float32)}

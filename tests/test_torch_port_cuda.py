@@ -1,5 +1,5 @@
-"""Tests of the port that need a CUDA card (marker ``cuda``): kernels A1, A2
-and G1-G4 have no CPU or interpret mode. They skip without a card. This file
+"""Tests of the port that need a CUDA card (marker ``cuda``): kernels A1, A2,
+G1-G4, R1 and R2 have no CPU or interpret mode. They skip without a card. This file
 imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda
@@ -772,3 +772,116 @@ def test_train_cli_runs_on_the_card_by_default(cuda, tmp_path):
         assert "proto_loss" in r and all(np.isfinite(v) for v in r.values())
         assert r["skipped_nonfinite"] == 0.0
     assert (tmp_path / "out" / "ckpt" / "checkpoint_epoch_0.pth").exists()
+
+
+def _clusters_with_shared_borders(seed, n_centers=40, per=60, noise=400, spread=8.0):
+    """f64 blobs close enough to share border points, plus uniform noise."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-spread, spread, (n_centers, 3))
+    pts = np.concatenate([c + rng.normal(0, 0.45, (per, 3)) for c in centers]
+                         + [rng.uniform(-spread - 2, spread + 2, (noise, 3))])
+    return pts[rng.permutation(len(pts))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,windows", [(20_000, 100_000, 4), (3_000, 40_000, 12), (5, 0, 3)])
+def test_radius_count_kernel_matches_plain(cuda, n, m, windows):
+    """Kernel R1 against its plain version: the counts equal exactly (the
+    same f32 arithmetic, no FMA contraction), also for queries placed on
+    cell edges and for windows with no support point; a second launch gives
+    the same counts."""
+    from cpd_tpu_torch.ops.radius import radius_count, radius_count_reference
+
+    rng = np.random.default_rng(n)
+    query = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    query[: n // 2] = (np.round(query[: n // 2] / 0.3) * 0.3).astype(np.float32)
+    support = rng.uniform(-6, 6, (m, 3)).astype(np.float32)
+    window = rng.integers(0, max(windows - 1, 1), m).astype(np.int32)  # the last window empty
+    q, s, w = (torch.from_numpy(a).to(cuda) for a in (query, support, window))
+    before = radius_count.launches
+    out = radius_count(q, s, w, windows, 0.3)
+    again = radius_count(q, s, w, windows, 0.3)
+    ref = radius_count_reference(q, s, w, windows, 0.3)
+    torch.cuda.synchronize()
+    assert out.shape == (n, windows) and out.dtype == torch.int32
+    assert torch.equal(out, ref) and torch.equal(out, again)
+    assert radius_count.launches - before == (2 if n and m else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dbscan_kernel_matches_plain(cuda, seed):
+    """Kernel R2 against its plain version on blobs that share border points:
+    labels equal on every point, twice (roots are minimum indices, so the
+    labels do not depend on thread order); an empty cloud gives no label."""
+    from cpd_tpu_torch.ops.dbscan import dbscan_labels, dbscan_reference
+
+    pts = torch.from_numpy(_clusters_with_shared_borders(seed)).to(cuda)
+    out = dbscan_labels(pts, 0.4, 5)
+    again = dbscan_labels(pts, 0.4, 5)
+    ref = dbscan_reference(pts, 0.4, 5)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.int32 and torch.equal(out, ref) and torch.equal(out, again)
+    assert int(out.max()) >= 10
+    assert dbscan_labels(torch.zeros((0, 3), dtype=torch.float64, device=cuda), 0.4, 5).numel() == 0
+
+
+@pytest.mark.cuda
+def test_factory_kernels_raise_on_wrong_operands(cuda):
+    """The wrappers reject what the kernels do not take, on the card too."""
+    from cpd_tpu_torch.ops.dbscan import dbscan_labels
+    from cpd_tpu_torch.ops.radius import radius_count
+
+    q = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(TypeError):
+        radius_count(q, q.double(), torch.zeros(4, dtype=torch.int32, device=cuda), 1, 0.3)
+    with pytest.raises(ValueError):
+        radius_count(q, q, torch.zeros(4, dtype=torch.int32), 1, 0.3)
+    with pytest.raises(TypeError):
+        dbscan_labels(q, 0.4, 5)
+
+
+@pytest.mark.cuda
+def test_factory_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The pseudo-label factory (PPScore, MFCF + C_PROTO) on a written
+    drive of 12 small frames: on the card (kernels R1 and R2) and on the CPU
+    (their plain versions) the same PPScore files, labels and prototype
+    banks, bit for bit; both kernels launched."""
+    import pickle
+    import shutil
+
+    from cpd_tpu_torch.ops.dbscan import dbscan_labels
+    from cpd_tpu_torch.ops.radius import radius_count
+    from cpd_tpu_torch.unsupervised import driver
+    from cpd_tpu_torch.utils.synthetic import make_lidar_sequence, write_waymo_sequence
+    from cpd_tpu_torch.utils.yaml_subset import load_file
+
+    frames, poses = make_lidar_sequence(1, n_frames=12, n_points=4000, r_max=14.0, n_parked=3,
+                                        n_moving=2, n_walls=1)
+    write_waymo_sequence(tmp_path / "card", "seq", frames, poses=poses, labels=False)
+    shutil.copytree(tmp_path / "card", tmp_path / "cpu")
+    cfg = load_file("tools/cfgs/dataset_configs/waymo_unsupervised_cproto.yaml")
+    launches = radius_count.launches, dbscan_labels.launches
+    out = {}
+    for side, dev in (("card", cuda), ("cpu", "cpu")):
+        root = tmp_path / side / "waymo_processed_data"
+        driver.save_ppscore(root / "seq", device=dev)
+        out[side] = driver.compute_outline_box("seq", root, cfg, device=dev)
+    assert radius_count.launches - launches[0] == 12 and dbscan_labels.launches > launches[1]
+    for i in range(12):
+        name = f"ppscore/{i:04d}.npy"
+        np.testing.assert_array_equal(
+            np.load(tmp_path / "card" / "waymo_processed_data" / "seq" / name),
+            np.load(tmp_path / "cpu" / "waymo_processed_data" / "seq" / name))
+    for f in out["cpu"]:
+        for k in out["cpu"][f]:
+            np.testing.assert_array_equal(out["card"][f][k], out["cpu"][f][k])
+    assert sum(len(r["outline_box"]) for r in out["cpu"].values()) > 0
+    banks = [pickle.load(open(tmp_path / side / "waymo_processed_data" / "seq"
+                              / "seq_outline_MFCF_CSS_proto.pkl", "rb"))["proto_points_set"]
+             for side in ("card", "cpu")]
+    assert banks[0].keys() == banks[1].keys()
+    for c in banks[1]:
+        assert banks[0][c].keys() == banks[1][c].keys()
+        for t in banks[1][c]:
+            np.testing.assert_array_equal(banks[0][c][t]["points"], banks[1][c][t]["points"])
