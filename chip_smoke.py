@@ -24,7 +24,9 @@ raising on failure:
 
 1. card: needs CUDA; prints the card's name and power limit;
 2. build: compiles every kernel source under cpd_tpu_torch/csrc/ (A1, A2,
-   G1-G4, R1, R2) with nvcc for sm_90a, one process each, side by side, and prints
+   G1-G4, R1, R2) with nvcc for sm_90a, one process each, side by side, and
+   the native host library (cpd_tpu_torch/native/src/pointcloud.cpp) with
+   g++ beside them, and prints
    what ptxas reports per kernel (registers a thread, spills; for each
    instance of G1-G4 apart, among G4's the transpose that G3 and G4 share)
    and the dynamic shared memory a block of A1, A2 and G1 asks for at the
@@ -165,6 +167,28 @@ raising on failure:
     the seconds of each builder function and of each stage inside them;
     then 2 steps of the training CLI on the shipped cproto yaml on those
     labels and banks (finite losses).
+16. KITTI and the native host library (it runs right after phase 15): (a)
+    ``native.points_in_boxes_mask`` on the bench frame and 64 drawn boxes
+    against its NumPy plain version (masks equal; host ms of each, median
+    of 5 in turns), and phase 9's training loader alone on its sequence with
+    the data layer's mask on either route (ms a frame, batches compared),
+    beside phase 9's host share; (b) the evaluation CLI on the shipped
+    voxel_rcnn_cproto_center_kitti.yaml at full width (MM weights present,
+    150k voxels, stage caps 80k / 40k / 20k / 20k) on 8 KITTI-layout frames
+    of 120k-point HDL-64E-like scans (``write_kitti_frames``), batch 2 (the
+    yaml's), a checkpoint from ``save_checkpoint`` that must load back
+    bit-equal with ``conv_input`` (27, 4, 16) in both branches; first the
+    cap audit and A1 against its plain version on the 21 convs of one batch
+    (the 4-channel input conv among them); gates: 21 A1 launches a batch,
+    one finite record a frame with ``location``, ``dimensions``,
+    ``rotation_y``, ``alpha`` and ``bbox``, R40 and R11 APs of Car,
+    Pedestrian and Cyclist; its frames/s beside ``predict`` alone; (c) the
+    training CLI on the same yaml and frames, ``--epochs 1 --debug_steps
+    2``, MM on: first the cap audit of both views and A1 forward, A1 as dX
+    and A2 against their plain versions on one step's operands; gates: (35
+    + 33, 35) launches a step, the counters accounted for, finite losses
+    with ``proto_loss``, no step skipped, a box labelled Car in the steps'
+    batches; the CLI's phase means and each step's ms.
 
 The last two lines of stdout are the card line and a JSON object; the line
 before them is the kernels JSON. For each use of A1 and A2 it gives the
@@ -199,6 +223,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -236,10 +261,11 @@ from cpd_tpu_torch.utils.yaml_subset import load_file
 from cpd_tpu_torch.datasets import waymo_unsupervised as builder
 from cpd_tpu_torch.unsupervised import outline
 from cpd_tpu_torch.unsupervised.ppscore import frame_windows
-from cpd_tpu_torch.utils.synthetic import (make_lidar_frame, make_lidar_sequence,
+from cpd_tpu_torch import native
+from cpd_tpu_torch.utils.synthetic import (class_boxes, make_lidar_frame, make_lidar_sequence,
                                            make_tiny_train_batch,
                                            make_train_batch, write_gt_database,
-                                           write_waymo_sequence)
+                                           write_kitti_frames, write_waymo_sequence)
 from cpd_tpu_torch.utils.weights import seeded_state_dict
 
 BENCH = dict(
@@ -313,6 +339,12 @@ FACTORY_BANK_MARGIN = 0.5
 FACTORY_LOSS_BOUND = 1e3
 FACTORY_LOSS_BOUNDED = ("rcnn_reg0", "rcnn_reg1", "proto_loss", "rcnn_cls0", "rcnn_cls1")
 CPROTO_DATA_YAML = "tools/cfgs/dataset_configs/waymo_unsupervised_cproto.yaml"
+KITTI_YAML = "tools/cfgs/models/voxel_rcnn_cproto_center_kitti.yaml"
+KITTI_FRAMES = 8
+KITTI_POINTS = 120_000  # an HDL-64E scan
+NATIVE_BOXES = 64
+NATIVE_REPS = 5
+PHASE9 = {}  # the train-CLI phase's host numbers, for phase 16's native-library line
 F32_CORE_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores (NVIDIA's H100 data sheet)
 F64_CORE_FLOPS = 34e12   # H100 SXM, f64 outside the tensor cores (NVIDIA's H100 data sheet)
 
@@ -1760,6 +1792,7 @@ def train_cli_phase(dev, card):
         runs = {r: _phase_means(logs[r]) for r in "abc"}
         n_steps, _, means = runs["c"][-1]
         share = 1 - means["step"] / sum(means[k] for k in ("data", "h2d", "step"))
+        PHASE9.update(share=share, loader_ms=loader_s / EVAL_FRAMES * 1e3, means=means)
         print(f"train CLI ({card}): batch {batch_size}, {steps_per_epoch} steps an epoch, runs "
               f"(a) {secs['a']:.1f} s, (b) {secs['b']:.1f} s with its eval, (c) "
               f"{secs['c']:.1f} s; steps/s by epoch (a) {[e[1] for e in runs['a']]}, (b) "
@@ -2627,6 +2660,282 @@ def factory_phase(dev, card):
     ]
 
 
+def timed_native_build():
+    """Build the native host library (``native.build``): (path, seconds)."""
+    t0 = time.perf_counter()
+    path = native.build()
+    return path, time.perf_counter() - t0
+
+
+def host_ms_in_turns(fns, reps):
+    """Median host milliseconds of each function, run in turns (a b, b a, ...)
+    after a warm-up of each."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
+    for r in range(reps):
+        for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
+            t0 = time.perf_counter()
+            fns[i]()
+            times[i].append((time.perf_counter() - t0) * 1e3)
+    return [statistics.median(t) for t in times], times
+
+
+def native_check(card):
+    """Phase 16 (a): the native host library. ``points_in_boxes_mask`` on the
+    bench frame (200k points) and 64 drawn boxes, native against its NumPy
+    plain version (masks equal; host times in turns), then phase 9's training
+    loader alone on the same written sequence with the data layer's mask on
+    each route (``waymo_unsupervised.points_in_boxes_mask_fast`` is the
+    native one; the NumPy one swapped in for the comparison)."""
+    pts, _ = make_lidar_frame(np.random.default_rng(0), N_POINTS)
+    boxes, _ = class_boxes(np.random.default_rng(1), NATIVE_BOXES, 70.0)
+    mask = native.points_in_boxes_mask(pts[:, :3], boxes)
+    plain = native.points_in_boxes_mask_np(pts[:, :3], boxes)
+    if not np.array_equal(mask, plain):
+        raise AssertionError(f"native points_in_boxes_mask differs from NumPy at "
+                             f"{int((mask != plain).sum())} of {mask.size} entries")
+    (native_ms, plain_ms), runs = host_ms_in_turns(
+        [lambda: native.points_in_boxes_mask(pts[:, :3], boxes),
+         lambda: native.points_in_boxes_mask_np(pts[:, :3], boxes)], NATIVE_REPS)
+    print(f"native points_in_boxes_mask ({card}): bench frame {N_POINTS} points x "
+          f"{NATIVE_BOXES} boxes ({int(mask.any(0).sum())} points in a box), masks equal; "
+          f"native {native_ms:.2f} ms, NumPy {plain_ms:.2f} ms (host clock, median of "
+          f"{NATIVE_REPS} in turns: native {', '.join(f'{t:.2f}' for t in runs[0])}; NumPy "
+          f"{', '.join(f'{t:.2f}' for t in runs[1])})", flush=True)
+
+    seed = train_cli.parse_args(["--cfg_file", EVAL_YAML]).seed
+    with tempfile.TemporaryDirectory() as tmp:
+        write_eval_sequence(tmp, protos=True)
+        sets = ["DATA_CONFIG.DATA_PATH", str(tmp), "DATA_CONFIG.SAMPLED_INTERVAL.train", "1"]
+        cfg = cfg_from_list(sets, cfg_from_yaml_file(EVAL_YAML, ConfigDict()))
+        batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+        fast = builder.points_in_boxes_mask_fast
+        got = {}
+
+        def load(route):
+            builder.points_in_boxes_mask_fast = (fast if route == "native"
+                                                 else native.points_in_boxes_mask_np)
+            try:
+                dataset = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, True, str(tmp))
+                _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+                                                training=True, seed=seed, dataset=dataset)
+                got[route] = list(loader)
+            finally:
+                builder.points_in_boxes_mask_fast = fast
+            return loader.num_threads
+        threads = load("native")
+        (native_ms, plain_ms), runs = host_ms_in_turns(
+            [lambda: load("native"), lambda: load("numpy")], 3)
+    same = all(np.array_equal(a[k], b[k]) for a, b in zip(got["native"], got["numpy"])
+               for k in a if isinstance(a[k], np.ndarray))
+    print(f"native training loader ({card}): phase 9's loader alone on its sequence "
+          f"({EVAL_FRAMES} frames of {N_POINTS} points with prototypes, batch {batch_size}, "
+          f"{threads} threads): native mask {native_ms / EVAL_FRAMES:.1f} ms a frame, NumPy "
+          f"mask {plain_ms / EVAL_FRAMES:.1f} ms a frame (median of 3 in turns: native "
+          f"{', '.join(f'{t / EVAL_FRAMES:.1f}' for t in runs[0])}; NumPy "
+          f"{', '.join(f'{t / EVAL_FRAMES:.1f}' for t in runs[1])}); batches bit-equal "
+          f"between the routes: {same}; phase 9 (native) read the loader alone at "
+          f"{PHASE9.get('loader_ms', float('nan')):.1f} ms a frame and the data layer's host "
+          f"share at {PHASE9.get('share', float('nan')):.1%}", flush=True)
+
+
+def kitti_eval_cli(dev, card, tmp, sets, cfg):
+    """Phase 16 (b): the evaluation CLI on the KITTI yaml. Returns A1's
+    kernels-line entry."""
+    t0 = time.perf_counter()
+    batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    n_batches = math.ceil(KITTI_FRAMES / batch_size)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+    model.load_state_dict(seeded_state_dict(model, 0), strict=True)
+    ckpt = save_checkpoint(tmp / "ckpt", model, 0)
+    fresh = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+    load_checkpoint(ckpt, fresh)
+    sd, back = model.state_dict(), fresh.state_dict()
+    if set(sd) != set(back) or not all(torch.equal(sd[k], back[k]) for k in sd):
+        raise AssertionError("KITTI eval CLI: the checkpoint round trip changed the state dict")
+    widths = {b: tuple(back[f"backbone.{b}.conv_input.weight"].shape)
+              for b in ("branch0", "branch1")}
+    if set(widths.values()) != {(27, 4, 16)}:
+        raise AssertionError(f"KITTI model: conv_input {widths}, want (27, 4, 16) in both")
+
+    dataset = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, False, str(tmp))
+    _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+                                    training=False, dataset=dataset)
+    t1 = time.perf_counter()
+    host_batches = list(loader)
+    loader_s = time.perf_counter() - t1
+    batches = [device_batch(b, dev) for b in host_batches]
+    in_fov = [int(b["points_valid"].sum()) for b in host_batches]
+    model = place(fresh.eval(), dev)
+    cap_audit(model, batches[0])
+    convs = recorded_forward(model, batches[0])
+    if not any(table.shape[-1] == 4 for _, table, _, _, _ in convs):
+        raise AssertionError("KITTI eval: no conv of the forward reads the 4-channel input")
+    max_err, shape_times = check_kernel("A1 KITTI eval CLI", convs, a1_kernel, a1_plain,
+                                        torch.bfloat16)
+    del convs
+
+    logger = logging.getLogger("cpd_tpu_torch")
+    lines = LogLines()
+    logger.addHandler(lines)
+    out_dir = tmp / "eval"
+    try:
+        torch.cuda.synchronize()
+        a1.gather_gemm.launches = 0
+        result = eval_cli.main(["--cfg_file", KITTI_YAML, "--ckpt", str(ckpt), "--output_dir",
+                                str(out_dir), "--set", *sets])
+        torch.cuda.synchronize()
+        launches = a1.gather_gemm.launches
+    finally:
+        logger.removeHandler(lines)
+    want = A1_PER_FORWARD[False] * n_batches
+    if launches != want:
+        raise AssertionError(f"KITTI eval CLI: A1 launched {launches} times, want {want}")
+    with open(out_dir / "result.pkl", "rb") as f:
+        det_annos = pickle.load(f)
+    if [a["frame_id"] for a in det_annos] != dataset.sample_ids:
+        raise AssertionError(f"KITTI eval CLI: records for {[a['frame_id'] for a in det_annos]}")
+    for a in det_annos:
+        n = len(a["score"])
+        for key, shape in (("boxes_lidar", (n, 7)), ("score", (n,)), ("location", (n, 3)),
+                           ("dimensions", (n, 3)), ("rotation_y", (n,)), ("alpha", (n,)),
+                           ("bbox", (n, 4))):
+            if key not in a or a[key].shape != shape or not np.isfinite(a[key]).all():
+                raise AssertionError(f"KITTI eval CLI: {a['frame_id']}'s {key} is missing, "
+                                     f"misshapen or not finite")
+    keys = {f"{c}_{m}/{lv}_{r}" for c in cfg.CLASS_NAMES for m in ("3d", "bev", "bbox", "aos")
+            for lv in ("easy", "moderate", "hard") for r in ("R40", "R11")}
+    if not keys <= set(result) or result.get("gt_count", 0) == 0:
+        raise AssertionError(f"KITTI eval CLI: result lacks {sorted(keys - set(result))[:6]} "
+                             f"or counted no gt box")
+    fps_line = next((ln for ln in lines.lines if ln.startswith("eval: ")), "")
+    m = re.match(r"eval: (\d+) frames in ([\d.]+)s \(([\d.]+) f/s\)", fps_line)
+    if not m or int(m.group(1)) != KITTI_FRAMES:
+        raise AssertionError(f"KITTI eval CLI: no frames/s line for {KITTI_FRAMES} frames")
+    cli_fps = float(m.group(3))
+    model.predict(batches[0])
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for b in batches:
+            model.predict(b)
+        torch.cuda.synchronize()
+        runs.append(KITTI_FRAMES / (time.perf_counter() - t1))
+    predict_fps = statistics.median(runs)
+    print(f"KITTI eval CLI ({card}): {KITTI_FRAMES} frames of {KITTI_POINTS} points "
+          f"({min(in_fov)}-{max(in_fov)} points a batch in the camera's view), batch "
+          f"{batch_size}, {launches} A1 launches, {sum(len(a['score']) for a in det_annos)} "
+          f"detections with camera fields; CLI {cli_fps:.2f} frames/s (its own log line: "
+          f"{fps_line!r}), predict alone on the same batches {predict_fps:.3f} frames/s (median "
+          f"of 3: {', '.join(f'{r:.3f}' for r in runs)}); the loader alone "
+          f"{loader_s / KITTI_FRAMES * 1e3:.1f} ms a frame", flush=True)
+    print("KITTI eval CLI result (moderate): " + ", ".join(
+        f"{k}={result[k]:.4f}" for k in sorted(result) if "moderate" in k or k == "gt_count"))
+    print(f"KITTI eval CLI phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return kernel_entry("gather_gemm", "KITTI eval CLI, batch 2",
+                        "cpd_tpu_torch/csrc/gather_gemm.cu", "cpd_tpu/ops/pallas_conv.py:77",
+                        launches, max_err, shape_times)
+
+
+def kitti_train_cli(dev, card, tmp, sets, cfg):
+    """Phase 16 (c): the training CLI on the KITTI yaml, ``--epochs 1
+    --debug_steps 2``, MM on. Returns the entries of A1, A1 as dX and A2."""
+    t0 = time.perf_counter()
+    seed = train_cli.parse_args(["--cfg_file", KITTI_YAML]).seed
+    batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    dataset = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, True, str(tmp))
+    _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+                                    training=True, seed=seed, dataset=dataset)
+    host_batches = list(loader)[:2]  # the two steps' batches, in the CLI's order
+    labels = np.concatenate([b["gt_boxes"][b["gt_valid"]][:, 7] for b in host_batches])
+    cars = int((labels == 1).sum())
+    if cars == 0:
+        raise AssertionError(f"KITTI train: no box labelled Car in the batches ({labels})")
+    b0 = device_batch(host_batches[0], dev)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+    model.load_state_dict(seeded_state_dict(model, seed), strict=True)
+    place(model, dev)
+    cap_audit(model, b0)
+    cap_audit(model, {"points": b0["points1"], "points_valid": b0["points1_valid"]})
+    checks = train_kernel_checks(model, b0, step_generator(seed, 0, dev))
+    if not any(e["cin"] == 4 for e in checks["forward"][1]):
+        raise AssertionError("KITTI train: no forward conv read the 4-channel input")
+    del model
+    torch.cuda.empty_cache()
+
+    logger = logging.getLogger("cpd_tpu_torch")
+    lines = LogLines()
+    logger.addHandler(lines)
+    try:
+        with CLISteps() as steps:
+            steps.run = "kitti"
+            torch.cuda.synchronize()
+            a1.gather_gemm.launches = a1.gather_gemm_dw.launches = 0
+            t1 = time.perf_counter()
+            state = train_cli.main(["--cfg_file", KITTI_YAML, "--output_dir", str(tmp / "out"),
+                                    "--epochs", "1", "--debug_steps", "2", "--log_every", "1",
+                                    "--set", *sets])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            totals = a1.gather_gemm.launches, a1.gather_gemm_dw.launches
+    finally:
+        logger.removeHandler(lines)
+    want = (TRAIN_A1_FORWARD, TRAIN_A1_DX, TRAIN_A2, 0)
+    if state.step != 2 or [r["launches"] for r in steps.rows] != [want, want]:
+        raise AssertionError(f"KITTI train CLI: {state.step} steps, launches "
+                             f"{[r['launches'] for r in steps.rows]}, want 2 x {want}")
+    if totals != (2 * (TRAIN_A1_FORWARD + TRAIN_A1_DX), 2 * TRAIN_A2):
+        raise AssertionError(f"KITTI train CLI: the counters read {totals}")
+    for r in steps.rows:
+        bad = [k for k, v in r["tb"].items() if not math.isfinite(v)]
+        if bad or "proto_loss" not in r["tb"] or r["tb"]["skipped_nonfinite"]:
+            raise AssertionError(f"KITTI train CLI step: non-finite {bad}, tb keys "
+                                 f"{sorted(r['tb'])}")
+    n_steps, rate, means = _phase_means(lines.lines)[-1]
+    print(f"KITTI train CLI ({card}): batch {batch_size}, {cars} Car labels among "
+          f"{len(labels)} in the two steps' batches, {n_steps} steps at {rate} steps/s; the "
+          f"CLI's phase means " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in means.items())
+          + "; each step " + ", ".join(f"{r['ms']:.1f}" for r in steps.rows)
+          + f" ms; per step A1 {want[0]} forward + {want[1]} dX, A2 {want[2]}; the CLI call "
+          f"{secs:.1f} s; last tb: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in steps.rows[-1]["tb"].items()), flush=True)
+    print(f"KITTI train CLI phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    src1, src2 = "cpd_tpu_torch/csrc/gather_gemm.cu", "cpd_tpu_torch/csrc/gather_gemm_dw.cu"
+    fwd, dx, a2 = (sum(r["launches"][i] for r in steps.rows) for i in range(3))
+    return [
+        kernel_entry("gather_gemm", "KITTI train CLI, batch 2", src1,
+                     "cpd_tpu/ops/pallas_conv.py:77", fwd, *checks["forward"]),
+        kernel_entry("gather_gemm (dX)", "KITTI train CLI, batch 2", src1,
+                     "cpd_tpu/ops/pallas_conv.py:77", dx, *checks["dx"]),
+        kernel_entry("gather_gemm_dw", "KITTI train CLI, batch 2", src2,
+                     "cpd_tpu/ops/pallas_conv.py:130", a2, *checks["dw"]),
+    ]
+
+
+def kitti_phase(dev, card):
+    """Phase 16: (a) the native host library, (b) the evaluation CLI and (c)
+    the training CLI on the shipped KITTI yaml at full width, on 8 frames
+    written by ``write_kitti_frames`` in KITTI's layout. Returns the
+    kernels-line entries of A1 and A2 on the KITTI paths."""
+    t0 = time.perf_counter()
+    native_check(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_kitti_frames(tmp, KITTI_FRAMES, seed=0, n_points=KITTI_POINTS)
+        sets = ["DATA_CONFIG.DATA_PATH", str(tmp)]
+        cfg = cfg_from_list(sets, cfg_from_yaml_file(KITTI_YAML, ConfigDict()))
+        if (list(cfg.CLASS_NAMES), cfg.MODEL.BACKBONE_3D.MM,
+                cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU) != (["Car", "Pedestrian", "Cyclist"], True, 2):
+            raise AssertionError("the KITTI yaml's classes, MM or batch moved")
+        entries = [kitti_eval_cli(dev, card, tmp, sets, cfg)]
+        torch.cuda.empty_cache()
+        entries += kitti_train_cli(dev, card, tmp, sets, cfg)
+    print(f"KITTI phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return entries
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     parser.add_argument("--determinism", type=int, metavar="RUNS",
@@ -2643,9 +2952,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    secs = cuda_build.build(verbose=True)
+    with ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(timed_native_build)
+        secs = cuda_build.build(verbose=True)
+        native_path, native_s = native_build.result()
     print(f"kernel build: {secs:.1f} s compiling {len(cuda_build.SOURCES)} sources (one nvcc "
           f"process each, side by side)", flush=True)
+    print(f"native host library: {native_path.name} built in {native_s:.1f} s beside them "
+          f"(g++ {' '.join(native.CXX_FLAGS)}, {native.SOURCE.name})", flush=True)
     dev = torch.device("cuda")
     if args.determinism:
         step_determinism(dev, max(args.determinism, 2), cudnn=not args.no_cudnn)
@@ -2694,6 +3008,8 @@ def main():
     kernels += anchor_phase(dev, card)
     torch.cuda.empty_cache()
     kernels += factory_phase(dev, card)
+    torch.cuda.empty_cache()
+    kernels += kitti_phase(dev, card)
     torch.cuda.empty_cache()
 
     kernels += training_phase(dev)

@@ -1,10 +1,11 @@
 """Host-side NumPy box geometry for the data pipeline (port of
 cpd_tpu/datasets/box_np.py).
 
-``points_in_boxes_mask_fast`` takes the NumPy path: the JAX package routes it
-to the threaded C++ library ``cpd_tpu.native`` when that builds, and this
-package imports nothing of ``cpd_tpu``. The two paths give the same mask
-(tests/test_torch_port_datasets.py holds them equal where the library loads).
+``points_in_boxes_mask_fast`` runs the threaded C++ library
+``cpd_tpu_torch.native``, as the JAX package's runs ``cpd_tpu.native``; it
+raises where the library does not build. ``points_in_boxes_mask_np`` is its
+plain version: the two masks differ only on points within an f32 rounding
+of a box face (tests/test_torch_port_native.py).
 """
 from __future__ import annotations
 
@@ -29,8 +30,10 @@ def points_in_boxes_mask_np(points, boxes):
 
 
 def points_in_boxes_mask_fast(points, boxes):
-    """The same mask; the JAX package's native fast path is not ported."""
-    return points_in_boxes_mask_np(points, boxes)
+    """The same mask from the native library."""
+    from .. import native
+
+    return native.points_in_boxes_mask(points, boxes)
 
 
 def mask_points_by_range_np(points, pcr):

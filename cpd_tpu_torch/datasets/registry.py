@@ -1,6 +1,6 @@
 """Dataset registry (port of cpd_tpu/datasets/registry.py; parity:
-cpd/datasets/__init__.py:14 __all__ dict). WaymoUnsupervisedDataset is
-ported; the KITTI readers of the JAX package are not yet."""
+cpd/datasets/__init__.py:14 __all__ dict): WaymoUnsupervisedDataset and
+Kitti2WaymoDataset."""
 from __future__ import annotations
 
 _REGISTRY = {}
@@ -16,11 +16,11 @@ def register_dataset(name):
 
 def build_dataset(dataset_cfg, class_names, training, root_path=None, logger=None, **kw):
     name = dataset_cfg["DATASET"]
-    # late import: registering the Waymo reader needs the dataset template
+    # late import: registering the readers needs the dataset template
     if name not in _REGISTRY:
-        from . import waymo_unsupervised  # noqa: F401
+        from . import kitti, waymo_unsupervised  # noqa: F401
     if name not in _REGISTRY:
-        raise KeyError(f"DATASET {name!r} is not ported yet (ported: {sorted(_REGISTRY)})")
+        raise KeyError(f"unknown DATASET {name!r} (registered: {sorted(_REGISTRY)})")
     cls = _REGISTRY[name]
     return cls(dataset_cfg=dataset_cfg, class_names=class_names, training=training,
                root_path=root_path, logger=logger, **kw)

@@ -437,11 +437,17 @@ def build_network(model_cfg, num_class: int, data_cfg) -> VoxelRCNN:
             pfe_kwargs["num_keypoints"] = int(pfe_c["NUM_KEYPOINTS"])
         if "NSAMPLE" in pfe_c:
             pfe_kwargs["nsample"] = int(pfe_c["NSAMPLE"])
+    # the model's input width is the point encoder's (datasets.dataset.
+    # PointFeatureEncoder): KITTI's [x, y, z, intensity] gives 4 columns; JAX
+    # infers the first conv's Cin from the batch it initialises on
+    pfe_enc = data_cfg.get("POINT_FEATURE_ENCODING", None)
     kwargs = dict(
         num_classes=num_class,
         point_cloud_range=pcr,
         voxel_size=voxel_size,
         max_voxels=max_voxels,
+        num_point_features=len(pfe_enc.get("used_feature_list", ("x", "y", "z", "intensity")))
+        if pfe_enc else 5,
         backbone_filters=tuple(b3d.get("NUM_FILTERS", (16, 32, 64, 128))),
         backbone_caps=tuple(b3d.get("VOXEL_CAPS", default_caps)),
         mm=bool(b3d.get("MM", False)),

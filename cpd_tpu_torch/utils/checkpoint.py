@@ -9,7 +9,8 @@ version}`` as ``<root>/checkpoint_epoch_{epoch}.pth``, rotated to the newest
 
 ``state`` is what holds the weights: a ``parallel.TrainState`` (model,
 optimizer and step counter) or a bare model (``optimizer_state`` is then
-None and ``it`` 0).
+None and ``it`` 0). ``load_torch_checkpoint`` reads a published reference
+checkpoint for ``utils.torch_import``.
 """
 from __future__ import annotations
 
@@ -111,3 +112,16 @@ def load_params_from_file(state, path, logger=None):
         if kept:
             logger.info(f"not updated in the model: {kept}")
     return state
+
+
+def load_torch_checkpoint(pth_path) -> dict:
+    """Read a reference .pth into a flat {name: np.ndarray} dict (its
+    ``model_state`` where it has one), as the JAX package's
+    ``load_torch_checkpoint`` does. The file is read with
+    ``weights_only=True`` (tensors, containers, numbers and strings: what a
+    reference checkpoint holds), so that no code in it runs. The key mapping
+    into the port's model is ``utils.torch_import.convert_reference_state_dict``."""
+    sd = torch.load(Path(pth_path), map_location="cpu", weights_only=True)
+    if "model_state" in sd:
+        sd = sd["model_state"]
+    return {k: v.detach().cpu().numpy() for k, v in sd.items() if hasattr(v, "detach")}

@@ -32,7 +32,7 @@ SENSOR_H = 2.0          # Waymo roof lidar height (m)
 AZ_STEPS = 2650         # azimuth samples per revolution (~0.136 deg)
 
 
-def _ground_rings(rng, n_ground, r_min, r_max):
+def _ground_rings(rng, n_ground, r_min, r_max, sensor_h=SENSOR_H, steep_deg=35.0):
     """Beam-structured ground returns: one ring per downward beam.
 
     Beam elevations are spaced uniformly in angle (real top lidars are
@@ -41,11 +41,11 @@ def _ground_rings(rng, n_ground, r_min, r_max):
     azimuth-contiguous revolution; the beam count is chosen so the total
     matches the budget.
     """
-    # rings out to r_max: elevation from steep (-35 deg) to graze
-    graze = np.arctan(SENSOR_H / r_max)
+    # rings out to r_max: elevation from steep (-steep_deg) to graze
+    graze = np.arctan(sensor_h / r_max)
     n_beams = max(4, int(np.ceil(n_ground / AZ_STEPS)))
-    elev = np.linspace(np.deg2rad(35.0), graze, n_beams)  # downward angles
-    radii = SENSOR_H / np.tan(elev)
+    elev = np.linspace(np.deg2rad(steep_deg), graze, n_beams)  # downward angles
+    radii = sensor_h / np.tan(elev)
     radii = np.clip(radii, r_min, r_max)
     az = (np.arange(AZ_STEPS) + 0.5) / AZ_STEPS * 2 * np.pi
     pts = []
@@ -318,7 +318,7 @@ CLASS_SIZES = {"Vehicle": (4.6, 2.0, 1.7), "Pedestrian": (0.8, 0.8, 1.8),
                "Cyclist": (1.8, 0.8, 1.7)}
 
 
-def _class_boxes(rng, n, r_max):
+def class_boxes(rng, n, r_max):
     """``n`` class-sized boxes standing on the ground at random places within
     ``r_max`` m: (boxes (n, 7) float32, names (n,))."""
     names = np.asarray(list(CLASS_SIZES))[rng.integers(0, len(CLASS_SIZES), n)]
@@ -376,13 +376,13 @@ def write_waymo_sequence(data_root, seq: str, frames, seed: int = 0, n_boxes: in
             infos.append({"pose": pose, "frame_id": f"{seq}_{i:03d}",
                           "point_cloud": {"lidar_sequence": seq, "sample_idx": i}})
             continue
-        boxes, names = _class_boxes(rng, n_boxes, r_max)
+        boxes, names = class_boxes(rng, n_boxes, r_max)
         n_in = points_in_boxes_mask_np(disk[:, :3], boxes).sum(axis=1)
         infos.append({"pose": pose, "frame_id": f"{seq}_{i:03d}",
                       "point_cloud": {"lidar_sequence": seq, "sample_idx": i},
                       "annos": {"gt_boxes_lidar": boxes, "name": names,
                                 "num_points_in_gt": n_in, "difficulty": np.zeros(n_boxes)}})
-        oboxes, onames = _class_boxes(rng, n_boxes, r_max)
+        oboxes, onames = class_boxes(rng, n_boxes, r_max)
         outline[i] = {"outline_box": oboxes, "outline_cls": onames,
                       "outline_score": rng.uniform(0.3, 1.0, n_boxes).astype(np.float32),
                       "outline_proto_id": rng.integers(0, 3, n_boxes)}
@@ -416,7 +416,7 @@ def write_gt_database(path, seed: int = 0, n_per_class: int = 4, r_max: float = 
     rng = np.random.default_rng(seed)
     db = {}
     for name in CLASS_SIZES:
-        boxes, _ = _class_boxes(rng, n_per_class, r_max)
+        boxes, _ = class_boxes(rng, n_per_class, r_max)
         boxes[:, 3:6] = np.asarray(CLASS_SIZES[name], np.float32)
         infos = []
         for box in boxes:
@@ -435,3 +435,162 @@ def write_gt_database(path, seed: int = 0, n_per_class: int = 4, r_max: float = 
     with open(path, "wb") as f:
         pickle.dump(db, f)
     return path
+
+
+# KITTI (HDL-64E on the car's roof, 1.73 m above the road, 64 beams from +2
+# to -24.8 deg; a real calib: P2 of the left colour camera, R0_rect and
+# Tr_velo_to_cam)
+KITTI_LIDAR_H = 1.73
+KITTI_CALIB = """P0: 707.0 0 604.0 0 0 707.0 180.5 0 0 0 1.0 0
+P2: 707.0 0 604.0 45.75 0 707.0 180.5 -0.34 0 0 1.0 0.005
+R0_rect: 0.9999 0.0098 -0.0074 -0.0098 0.9999 -0.0043 0.0074 0.0043 0.9999
+Tr_velo_to_cam: 0.0075 -0.9999 -0.0006 -0.0027 0.0029 0.0007 -0.9999 -0.0752 0.9999 0.0075 0.0029 -0.2721
+"""
+KITTI_SIZES = {"Car": (3.9, 1.6, 1.56), "Pedestrian": (0.8, 0.6, 1.73),
+               "Cyclist": (1.76, 0.6, 1.73)}
+KITTI_DONTCARE = "DontCare -1 -1 -10 500.00 160.00 520.00 170.00 -1 -1 -1 -1000 -1000 -1000 -10"
+
+
+def _kitti_boxes(rng, n, box_range, half_fov_deg=30.0):
+    """``n`` KITTI-class boxes (Car, Pedestrian and Cyclist in turn) on the
+    road ahead, within ``half_fov_deg`` of the camera's axis and
+    ``box_range`` m, apart from each other: (boxes (n, 7) in the lidar
+    frame, names (n,))."""
+    names = np.asarray([list(KITTI_SIZES)[i % 3] for i in rng.permutation(n)])
+    boxes = np.zeros((n, 7))
+    for i, name in enumerate(names):
+        lwh = np.asarray(KITTI_SIZES[name]) * rng.uniform(0.9, 1.1, 3)
+        for _ in range(100):
+            r = rng.uniform(*box_range)
+            az = np.deg2rad(rng.uniform(-half_fov_deg, half_fov_deg))
+            xy = r * np.array([np.cos(az), np.sin(az)])
+            if all(np.hypot(*(xy - boxes[j, :2])) > 3.0 for j in range(i)):
+                break
+        boxes[i] = [*xy, -KITTI_LIDAR_H + lwh[2] / 2, *lwh, rng.uniform(-np.pi, np.pi)]
+    return boxes, names
+
+
+def _visible_faces(rng, boxes, counts, inset=0.05):
+    """Points on the two faces of each box that face the sensor, on the
+    scan grid, ``inset`` m inside the box (so that the mask counts them)."""
+    out = []
+    for box, count in zip(boxes, counts):
+        x, y, z, l, w, h, yaw = box
+        faces = []
+        for normal_az, half, width in ((yaw, l / 2, w), (yaw + np.pi / 2, w / 2, l)):
+            n = np.array([np.cos(normal_az), np.sin(normal_az)])
+            if n @ np.array([x, y]) > 0:  # the face on the sensor's side
+                normal_az, n = normal_az + np.pi, -n
+            faces.append((np.array([x, y]) + n * (half - inset), normal_az, width - 2 * inset))
+        r = max(np.hypot(x, y), 2.5)
+        share = np.array([f[2] for f in faces]) / sum(f[2] for f in faces)
+        for (origin, normal_az, width), frac in zip(faces, share):
+            out.append(_surface_patch(rng, origin, normal_az, width, h - 2 * inset, r,
+                                      max(int(count * frac), 4), z0=z - h / 2 + inset))
+    return out
+
+
+def make_kitti_scan(rng, boxes, n_points: int = 120_000, r_max: float = 80.0,
+                    n_objects: int = 40, n_walls: int = 16):
+    """An HDL-64E-like 360-degree scan in KITTI's lidar frame (road at z =
+    -1.73 m): about 55% ground rings, 30% object faces (the two
+    sensor-facing faces of each of ``boxes`` and of ``n_objects`` unlabelled
+    objects behind and beside the car), 15% walls and poles; reflectance in
+    [0, 1]. -> (n_points, 4) float32 [x y z reflectance]."""
+    n_ground = int(n_points * 0.55)
+    n_obj = int(n_points * 0.30)
+    n_clutter = n_points - n_ground - n_obj
+    ground = _ground_rings(rng, n_ground, 2.5, r_max, KITTI_LIDAR_H, 24.8)
+    ground[:, 2] -= KITTI_LIDAR_H
+    # unlabelled objects outside the camera's view (labels cover the view)
+    sizes = np.asarray(list(KITTI_SIZES.values()))[rng.integers(0, 3, n_objects)]
+    r = 4.0 + (r_max - 10.0) * rng.random(n_objects) ** 1.5
+    az = rng.uniform(np.deg2rad(60), np.deg2rad(300), n_objects)
+    others = np.concatenate([(r * np.cos(az))[:, None], (r * np.sin(az))[:, None],
+                             -KITTI_LIDAR_H + sizes[:, 2:3] / 2, sizes,
+                             rng.uniform(-np.pi, np.pi, (n_objects, 1))], axis=1)
+    every = np.concatenate([np.asarray(boxes, np.float64).reshape(-1, 7), others])
+    weight = 1.0 / np.maximum(np.hypot(every[:, 0], every[:, 1]), 5.0) ** 2
+    counts = np.maximum((weight / weight.sum() * n_obj).astype(int), 8)
+    pts = [ground] + _visible_faces(rng, every, counts)
+    per_wall = n_clutter // n_walls
+    for i in range(n_walls):
+        c = per_wall if i < n_walls - 1 else n_clutter - per_wall * (n_walls - 1)
+        wr = 8.0 + (r_max - 10.0) * rng.random() ** 1.2
+        waz = rng.uniform(0, 2 * np.pi)
+        origin = (wr * np.cos(waz), wr * np.sin(waz))
+        if rng.random() < 0.3:  # pole
+            pts.append(_surface_patch(rng, origin, waz, 0.25, rng.uniform(2.0, 3.9), wr, c,
+                                      z0=-KITTI_LIDAR_H))
+        else:
+            pts.append(_surface_patch(rng, origin, rng.uniform(0, 2 * np.pi),
+                                      rng.uniform(4.0, 20.0), rng.uniform(2.5, 3.9), wr, c,
+                                      z0=-KITTI_LIDAR_H))
+    xyz = np.concatenate(pts, axis=0)[:n_points]
+    if len(xyz) < n_points:
+        xyz = np.concatenate([xyz, xyz[rng.integers(0, len(xyz), n_points - len(xyz))]])
+    out = np.concatenate([xyz, rng.uniform(0, 1, (n_points, 1))], axis=1).astype(np.float32)
+    return out[rng.permutation(n_points)]
+
+
+def kitti_label_lines(boxes, names, calib, rng):
+    """KITTI label_2 lines of lidar ``boxes``: location, dimensions and
+    rotation_y in the rectified camera frame, alpha = ry - atan2(x, z), the
+    image box of the projected corners, truncation (the share of the
+    unclipped image box outside the image) and occlusion 0 or 1."""
+    from ..datasets.kitti import boxes_lidar_to_camera, camera_boxes_to_image_bboxes
+
+    loc, lwh, ry = boxes_lidar_to_camera(np.asarray(boxes, np.float64), calib)
+    bbox = camera_boxes_to_image_bboxes(loc, lwh, ry, calib)
+    free = camera_boxes_to_image_bboxes(loc, lwh, ry, calib, image_shape=(1e6, 1e6))
+
+    def area(b):
+        return np.maximum(b[:, 2] - b[:, 0], 0) * np.maximum(b[:, 3] - b[:, 1], 0)
+
+    trunc = np.clip(1 - area(bbox) / np.maximum(area(free), 1e-6), 0, 1)
+    alpha = (ry - np.arctan2(loc[:, 0], loc[:, 2]) + np.pi) % (2 * np.pi) - np.pi
+    ry = (ry + np.pi) % (2 * np.pi) - np.pi
+    occ = rng.integers(0, 2, len(boxes))
+    return [f"{n} {t:.2f} {o} {a:.2f} {b[0]:.2f} {b[1]:.2f} {b[2]:.2f} {b[3]:.2f} "
+            f"{d[2]:.2f} {d[1]:.2f} {d[0]:.2f} {p[0]:.2f} {p[1]:.2f} {p[2]:.2f} {r:.2f}"
+            for n, t, o, a, b, d, p, r in zip(names, trunc, occ, alpha, bbox, lwh, loc, ry)]
+
+
+def write_kitti_frames(root, n: int, seed: int = 0, n_points: int = 120_000,
+                       n_boxes: int = 6, box_range=(6.0, 45.0)):
+    """Write ``n`` KITTI frames in KITTI's own layout under ``root``, as
+    ``datasets.kitti.Kitti2WaymoDataset`` reads them:
+
+    * ``training/velodyne/NNNNNN.bin``: ``make_kitti_scan`` (n_points x 4 f32);
+    * ``training/calib/NNNNNN.txt``: ``KITTI_CALIB``;
+    * ``training/label_2/NNNNNN.txt``: ``n_boxes`` labels of Car, Pedestrian
+      and Cyclist in turn, in the camera's view within ``box_range`` m
+      (``kitti_label_lines``), then a DontCare line; the scan's object
+      points lie on the boxes these lines describe, as written (2
+      decimals);
+    * ``ImageSets/train.txt`` and ``val.txt``: every frame.
+
+    Every draw comes from ``numpy.random.default_rng([seed, frame])``.
+    Returns the frame ids."""
+    from pathlib import Path
+
+    from ..datasets.kitti import Calibration, Object3d, boxes_camera_to_lidar
+
+    root = Path(root)
+    dirs = {sub: root / "training" / sub for sub in ("velodyne", "calib", "label_2")}
+    for d in dirs.values():
+        d.mkdir(parents=True, exist_ok=True)
+    (root / "ImageSets").mkdir(parents=True, exist_ok=True)
+    ids = [f"{i:06d}" for i in range(n)]
+    for i, sid in enumerate(ids):
+        rng = np.random.default_rng([seed, i])
+        (dirs["calib"] / f"{sid}.txt").write_text(KITTI_CALIB)
+        calib = Calibration(dirs["calib"] / f"{sid}.txt")
+        boxes, names = _kitti_boxes(rng, n_boxes, box_range)
+        lines = kitti_label_lines(boxes, names, calib, rng)
+        written = boxes_camera_to_lidar([Object3d(ln) for ln in lines], calib)
+        (dirs["label_2"] / f"{sid}.txt").write_text("\n".join(lines + [KITTI_DONTCARE]) + "\n")
+        make_kitti_scan(rng, written, n_points).tofile(dirs["velodyne"] / f"{sid}.bin")
+    for split in ("train", "val"):
+        (root / "ImageSets" / f"{split}.txt").write_text("\n".join(ids) + "\n")
+    return ids

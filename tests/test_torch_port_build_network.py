@@ -1,9 +1,11 @@
 """``build_network`` of the port against the JAX package's, on the CPU.
 
 * All five shipped model yamls build in both packages at full width, and
-  the JAX parameter tree of a training init maps key for key onto the
-  port's state dict through ``state_dict_from_jax``: voxel_rcnn_cproto_center
-  and its KITTI variant (MM on), the DBSCAN and OYSTER VoxelRCNN yamls
+  the JAX parameter tree of a training init on the yaml's encoded point
+  columns maps key for key onto the port's state dict through
+  ``state_dict_from_jax``: voxel_rcnn_cproto_center and its KITTI variant
+  (MM on; the KITTI yaml's x, y, z, intensity make ``conv_input`` (27, 4,
+  16) in both branches, the other yamls' 5 columns (27, 5, 16)), the DBSCAN and OYSTER VoxelRCNN yamls
   (AnchorHeadSingleV2, VoxelRCNNHead, MM off) and the PointPillars yaml
   (PillarVFE, no 3D backbone, no RoI head; at +-75.52 m, where its BEV
   pyramid concatenates: at its own +-75.2 m neither package runs it, see
@@ -44,13 +46,14 @@ from cpd_tpu_torch.utils.weights import state_dict_from_jax
 from tests.test_torch_port_models import jax_nms_with_clip_iou, seeded_jax_variables
 
 SHIPPED = "tools/cfgs/models/voxel_rcnn_cproto_center.yaml"
+KITTI = "tools/cfgs/models/voxel_rcnn_cproto_center_kitti.yaml"
 PILLAR_RANGE_SETS = ["DATA_CONFIG.POINT_CLOUD_RANGE", "[-75.52,-75.52,-2.0,75.52,75.52,4.0]"]
 # per yaml: the sets its full-width build takes, MM, the stage caps, the
 # voxel (pillar) cap, the dense head, and a state-dict key with its shape
 PORTED = {
     SHIPPED: ([], True, (80000, 40000, 20000, 20000), 150000, "CenterHead",
               ("roi_head.shared0.fc1.weight", (256, 256))),
-    "tools/cfgs/models/voxel_rcnn_cproto_center_kitti.yaml": (
+    KITTI: (
         [], True, (80000, 40000, 20000, 20000), 150000, "CenterHead",
         ("roi_head.shared0.fc1.weight", (256, 256))),
     "tools/cfgs/models/voxel_rcnn_dbscan_single_train.yaml": (
@@ -129,11 +132,12 @@ def load_pair(path, sets=()):
     return port, ref
 
 
-def jax_shapes(jmodel, n_points=256):
-    """Abstract variables of a training init (the MM branch included)."""
+def jax_shapes(jmodel, n_points=256, n_cols=5):
+    """Abstract variables of a training init (the MM branch included) on
+    points of ``n_cols`` columns (JAX takes the first conv's Cin from them)."""
     rng = np.random.default_rng(0)
     pts = np.concatenate([rng.uniform(-8, 8, (1, n_points, 2)), rng.uniform(-2, 4, (1, n_points, 1)),
-                          rng.uniform(0, 1, (1, n_points, 2))], -1).astype(np.float32)
+                          rng.uniform(0, 1, (1, n_points, n_cols - 3))], -1).astype(np.float32)
     gt = np.zeros((1, 2, 8), np.float32)
     gt[..., 3:6], gt[..., 7] = 2.0, 1.0
     batch = {"points": jnp.asarray(pts), "points_valid": jnp.ones((1, n_points), bool),
@@ -167,12 +171,16 @@ def test_ported_yaml_builds_at_full_width_with_one_to_one_keys(path):
     else:
         assert not hasattr(pm, "backbone") and pm.grid.nx == 472
     assert pm.vox_spec.max_voxels == jm.max_voxels == max_voxels
-    shapes = jax_shapes(jm)
+    # both packages see the yaml's encoded columns: KITTI's x, y, z, intensity
+    width = len(port_cfg.DATA_CONFIG.POINT_FEATURE_ENCODING.used_feature_list)
+    assert width == (4 if path == KITTI else 5)
+    shapes = jax_shapes(jm, n_cols=width)
     n_leaves = sum(len(jax.tree_util.tree_leaves(shapes[c])) for c in ("params", "batch_stats"))
     sd = state_dict_from_jax(seeded_jax_variables(shapes, 0), pm)  # raises on any mismatch
     assert set(sd) == set(pm.state_dict()) and len(sd) == n_leaves
     if caps is not None:
-        assert sd["backbone.branch0.conv_input.weight"].shape == (27, 5, 16)
+        for branch in ("branch0", "branch1") if mm else ("branch0",):
+            assert sd[f"backbone.{branch}.conv_input.weight"].shape == (27, width, 16)
     assert sd[key].shape == shape
 
 

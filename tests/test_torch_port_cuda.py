@@ -29,7 +29,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k,cin,cout", [(1000, 27, 5, 16), (777, 27, 32, 64),
+@pytest.mark.parametrize("n,k,cin,cout", [(1000, 27, 5, 16), (1000, 27, 4, 16), (777, 27, 32, 64),
                                           (300, 3, 128, 128), (64, 27, 16, 200)])
 def test_gather_gemm_kernel_matches_plain(cuda, n, k, cin, cout):
     """Kernel A1 against its plain version: f32 to 1e-4 (TF32 off); bf16
@@ -83,9 +83,9 @@ def test_sparse_conv_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k,cin,cout", [(1000, 27, 5, 16), (5000, 27, 32, 64),
-                                          (300, 3, 128, 128), (2049, 27, 16, 200),
-                                          (77, 27, 130, 70)])
+@pytest.mark.parametrize("n,k,cin,cout", [(1000, 27, 5, 16), (1000, 27, 4, 16),
+                                          (5000, 27, 32, 64), (300, 3, 128, 128),
+                                          (2049, 27, 16, 200), (77, 27, 130, 70)])
 def test_gather_gemm_dw_kernel_matches_plain(cuda, n, k, cin, cout):
     """Kernel A2 against its plain version: f32 to 1e-4 of the output's scale
     (a sum over the rows in another order, TF32 off), bf16 operands to 1e-3
@@ -180,9 +180,10 @@ def _rulebook(rng, b, n, k, v, case):
             torch.from_numpy(found & inside))
 
 
-# b, n, k, cin, cout: ragged rows, K = 3, 5-channel rows, wide -> narrow (the
-# dX of a strided conv), more channels than one tile or staged depth holds
-TRAP_SHAPES = [(2, 1000, 27, 5, 16), (1, 1237, 27, 16, 16), (2, 777, 27, 64, 32),
+# b, n, k, cin, cout: ragged rows, K = 3, 5-channel rows, 4-channel rows (the
+# KITTI yaml's input: one 16-byte f32 row), wide -> narrow (the dX of a
+# strided conv), more channels than one tile or staged depth holds
+TRAP_SHAPES = [(2, 1000, 27, 5, 16), (2, 1000, 27, 4, 16), (1, 1237, 27, 16, 16), (2, 777, 27, 64, 32),
                (2, 531, 27, 128, 64), (1, 300, 3, 128, 128), (2, 333, 27, 16, 32),
                (1, 600, 27, 32, 32), (1, 450, 27, 64, 128), (1, 90, 27, 130, 70),
                (1, 129, 40, 24, 136)]

@@ -2,10 +2,10 @@
 on the CPU: the same NumPy inputs, made from a seed, through both.
 
 Every module is a NumPy copy, so integers, names, keys and booleans match
-exactly and floats within 1e-6. The one difference by design is
-``points_in_boxes_mask_fast``: the JAX package uses its C++ library
-``cpd_tpu.native`` where that builds, the port the NumPy path; the two masks
-are held equal where the library loads."""
+exactly and floats within 1e-6. ``points_in_boxes_mask_fast`` runs each
+package's C++ library (``cpd_tpu.native`` where it builds,
+``cpd_tpu_torch.native``), and each route is held to the same route of the
+other package: native to native, NumPy to NumPy."""
 import pickle
 
 import numpy as np
@@ -69,7 +69,7 @@ def test_box_np_equals_jax():
     pcr = np.array([-10, -12, -1, 10, 12, 3], np.float32)
     for fn in ("points_in_boxes_mask_np", "points_in_boxes_mask_fast"):
         np.testing.assert_array_equal(getattr(box_np, fn)(pts[:, :3], boxes),
-                                      jbox.points_in_boxes_mask_np(pts[:, :3], boxes), err_msg=fn)
+                                      getattr(jbox, fn)(pts[:, :3], boxes), err_msg=fn)
     np.testing.assert_array_equal(box_np.points_in_box_np(pts, boxes[0]),
                                   jbox.points_in_box_np(pts, boxes[0]))
     np.testing.assert_array_equal(box_np.mask_points_by_range_np(pts, pcr),
@@ -79,8 +79,9 @@ def test_box_np_equals_jax():
 
 
 def test_numpy_mask_equals_the_native_library():
-    """The JAX package's fast path where its C++ library loads: the port's
-    NumPy mask is the same, also on points placed on the box faces."""
+    """Native to native: the port's fast mask (its C++ library) equals the
+    JAX package's C++ library bit for bit, also on points placed on the
+    box faces; the NumPy masks of both packages equal each other there."""
     from cpd_tpu import native
     if not native.available():
         pytest.skip("the JAX package's C++ library does not build here")
@@ -90,6 +91,8 @@ def test_numpy_mask_equals_the_native_library():
     pts = np.concatenate([pts[:, :3], faces.reshape(-1, 3).astype(np.float32)])
     np.testing.assert_array_equal(box_np.points_in_boxes_mask_fast(pts, boxes),
                                   native.points_in_boxes_mask(pts, boxes))
+    np.testing.assert_array_equal(box_np.points_in_boxes_mask_np(pts, boxes),
+                                  jbox.points_in_boxes_mask_np(pts, boxes))
 
 
 def test_point_ops_equal_jax():

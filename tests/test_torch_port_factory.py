@@ -98,14 +98,23 @@ def test_compute_outline_box_matches_jax(roots, init):
                           want)
 
 
-def test_dataset_and_gt_database_read_the_factory_output(roots, tmp_path, monkeypatch):
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_dataset_and_gt_database_read_the_factory_output(roots, tmp_path, monkeypatch, route):
     """The MFCF + C_PROTO output as the datasets read it: the port's and
     JAX's ``WaymoUnsupervisedDataset`` (training mode, prototype views)
     give the same samples, and both ``create_track_groundtruth_database``
-    the same database."""
+    the same database, each package's points-in-boxes mask on the same
+    route: both C++ libraries (JAX's default where it builds), or both
+    NumPy masks. The routes differ on points on the fitted boxes' faces."""
+    from cpd_tpu import native
     from cpd_tpu.datasets.box_np import points_in_boxes_mask_np
+    from cpd_tpu_torch.datasets import box_np
 
-    monkeypatch.setattr(jwu, "points_in_boxes_mask_fast", points_in_boxes_mask_np)
+    if route == "numpy":
+        monkeypatch.setattr(jwu, "points_in_boxes_mask_fast", points_in_boxes_mask_np)
+        monkeypatch.setattr(pwu, "points_in_boxes_mask_fast", box_np.points_in_boxes_mask_np)
+    elif not native.available():
+        pytest.skip("the JAX package's C++ library does not build here")
     cfg = dict(copy.deepcopy(load_file(YAML)), InitLabelGenerator="MFCF")
     jdriver.compute_outline_box(SEQ, roots["jax"], cfg)  # cached when written above
     pdriver.compute_outline_box(SEQ, roots["port"], cfg, device="cpu")
