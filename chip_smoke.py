@@ -13,7 +13,9 @@ sparse tail; the evaluation CLI ``cpd_tpu_torch.tools.test`` and the
 training CLI ``cpd_tpu_torch.tools.train`` on the shipped
 voxel_rcnn_cproto_center.yaml (batch 4, 8 written frames); the anchor-head
 models of the DBSCAN, OYSTER and PointPillars yamls (predict, a batch-2
-step, the training CLI on OYSTER); the pseudo-label factory's builder
+step, the training CLI on OYSTER); both CLIs on ranks under ``torchrun``
+(NCCL at one rank, gloo on 2 ranks sharing the card); the pseudo-label
+factory's builder
 (PPScore, MFCF + C_PROTO labels, the gt database) on a written 20-frame
 drive and the training CLI on its labels; the training step
 of ``cpd_tpu_torch.parallel``
@@ -189,6 +191,21 @@ raising on failure:
     + 33, 35) launches a step, the counters accounted for, finite losses
     with ``proto_loss``, no step skipped, a box labelled Car in the steps'
     batches; the CLI's phase means and each step's ms.
+17. data parallel (it runs right after phase 16): the training and
+    evaluation CLIs under ``python -m torch.distributed.run --standalone``
+    on phase 9's yaml, frames and weights, global batch 4: (a) one rank on
+    NCCL, 2 steps, then the eval CLI; (b) 2 ranks sharing the card over
+    gloo (2 samples a rank): 2 steps stopped, 2 more auto-resumed with
+    ``--eval_after 1``, 4 unbroken, then the eval CLI on 2 ranks; in the
+    first (b) run each rank holds the A1 forward, A1 as dX and A2 operands
+    of its first step against their plain versions. Gates (read from the ranks' ``rank R/W`` log lines):
+    launches (35 + 33, 35) every step of every rank, the ranks' weights
+    bit-equal, (b)'s resume bit-equal, (b)'s first loss within a relative
+    0.5 of phase 9's, the merged result.pkl in dataset order and equal to
+    (a)'s. Prints each rank's steps/s, phase means, step ms, peak memory,
+    the gradient bucket's MB and all-reduce ms, and the norm collectives'
+    count and ms (gloo staged through the host on one card, not NCCL
+    across cards).
 
 The last two lines of stdout are the card line and a JSON object; the line
 before them is the kernels JSON. For each use of A1 and A2 it gives the
@@ -214,13 +231,17 @@ many; ``library_ms`` is null (no PyTorch call computes either function).
 """
 import argparse
 import ast
+import contextlib
 import json
 import logging
 import math
+import os
 import pickle
 import re
+import signal
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -412,7 +433,7 @@ def found_tap_ops(idx, found, cin, cout):
     return 2.0 * float(idx.numel() if found is None else found.sum()) * cin * cout
 
 
-def check_kernel(label, calls, kernel, plain, out_dtype):
+def check_kernel(label, calls, kernel, plain, out_dtype, timed=True):
     """One kernel use against its plain version on each recorded call's bf16
     operands ``(name, table, idx, found, other)``: in f32 (the kernel's
     arithmetic; TF32 is off) within 1e-4 of the output's scale plus rtol 1e-4,
@@ -420,7 +441,8 @@ def check_kernel(label, calls, kernel, plain, out_dtype):
     result, within rtol 1e-2 + 1e-2 of the output's scale; a second launch
     must give the same bits (no atomics in either kernel). ``kernel`` and
     ``plain`` take (table, idx, found, other, out_dtype). Returns the largest
-    bf16 error and, per layer shape, the median times and the bound."""
+    bf16 error and, per layer shape, the median times (not ``timed``: none)
+    and the bound."""
     max_err = 0.0
     shapes = {}
     for name, table, idx, found, other in calls:
@@ -448,7 +470,7 @@ def check_kernel(label, calls, kernel, plain, out_dtype):
         if key not in shapes:
             ms, plain_ms = paired_median_ms(
                 lambda: kernel(table, idx, found, other, out_dtype),
-                lambda: plain(table, idx, found, other, out_dtype))
+                lambda: plain(table, idx, found, other, out_dtype)) if timed else (None, None)
             shapes[key] = dict(layer=name, batch=b, rows=n, taps=k, cin=table.shape[-1],
                                cout=other.shape[-1], ms=ms, plain_ms=plain_ms, count=0,
                                bound_ms=0.0, bound_by={}, nbytes=0.0, ops=0.0)
@@ -465,6 +487,8 @@ def check_kernel(label, calls, kernel, plain, out_dtype):
         print(f"{label} {name}: B={b} N={n} K={k} C={table.shape[-1]}->{other.shape[-1]} "
               f"found={found.float().mean().item():.3f} f32 max err {err32.max().item():.3e}, "
               f"bf16 max err {err.max().item():.3e} (output scale {scale:.3e})")
+    if not timed:
+        return max_err, list(shapes.values())
     name, table, idx, found, other = calls[0]
     host_us = wrapper_host_us(lambda: kernel(table, idx, found, other, out_dtype))
     print(f"{label}: the wrapper takes {host_us:.1f} us of host time a call (at {name}, 200 "
@@ -711,22 +735,29 @@ def labels_on_proposals(model, batch, n_labelled, props=None):
 class KernelRecorder:
     """Records the operands of every launch that the sparse convs make while
     it is active, as the wrappers receive them: A1 in the forward, A1 as dX
-    and A2 in the backward (calls made after ``in_backward`` is set)."""
+    and A2 in the backward (calls made after ``in_backward`` is set). With
+    ``copy`` it keeps copies, as they were at the launch (a weight moves
+    with the optimizer's step)."""
 
-    def __init__(self):
+    def __init__(self, copy=False):
         self.calls = {"forward": [], "dx": [], "dw": []}
         self.in_backward = False
+        self.copy = copy
+
+    def _keep(self, kind, *operands):
+        if self.copy:
+            operands = tuple(None if t is None else t.clone() for t in operands)
+        self.calls[kind].append((f"{kind}[{len(self.calls[kind])}]", *operands))
 
     def __enter__(self):
         self.saved = (sparse.gather_gemm, sparse.gather_gemm_dw)
 
         def gather_gemm(table, idx, found, w_flat, out_dtype=torch.float32):
-            kind = "dx" if self.in_backward else "forward"
-            self.calls[kind].append((f"{kind}[{len(self.calls[kind])}]", table, idx, found, w_flat))
+            self._keep("dx" if self.in_backward else "forward", table, idx, found, w_flat)
             return self.saved[0](table, idx, found, w_flat, out_dtype)
 
         def gather_gemm_dw(table, idx, found, g_out):
-            self.calls["dw"].append((f"dw[{len(self.calls['dw'])}]", table, idx, found, g_out))
+            self._keep("dw", table, idx, found, g_out)
             return self.saved[1](table, idx, found, g_out)
 
         sparse.gather_gemm, sparse.gather_gemm_dw = gather_gemm, gather_gemm_dw
@@ -748,15 +779,23 @@ def train_kernel_checks(model, batch, generator,
         loss.backward()
     torch.cuda.synchronize()
     model.zero_grad(set_to_none=True)
+    return recorded_train_checks(rec, want)
+
+
+def recorded_train_checks(rec, want=(TRAIN_A1_FORWARD, TRAIN_A1_DX, TRAIN_A2), timed=True):
+    """Every recorded launch of A1 forward, A1 as dX and A2 against its plain
+    version (``timed``: and each shape timed); raises unless the recorder
+    holds ``want`` launches of each. Returns {use: (max err, shapes)}."""
     counts = {k: len(v) for k, v in rec.calls.items()}
     want = dict(zip(("forward", "dx", "dw"), want))
     if counts != want:
         raise AssertionError(f"recorded kernel calls {counts}, want {want}")
     bf16 = torch.bfloat16
     return {"forward": check_kernel("A1 train forward", rec.calls["forward"], a1_kernel,
-                                    a1_plain, bf16),
-            "dx": check_kernel("A1 as dX", rec.calls["dx"], a1_kernel, a1_plain, bf16),
-            "dw": check_kernel("A2", rec.calls["dw"], a2_kernel, a2_plain, torch.float32)}
+                                    a1_plain, bf16, timed),
+            "dx": check_kernel("A1 as dX", rec.calls["dx"], a1_kernel, a1_plain, bf16, timed),
+            "dw": check_kernel("A2", rec.calls["dw"], a2_kernel, a2_plain, torch.float32,
+                               timed)}
 
 
 def cuda_event():
@@ -1577,6 +1616,7 @@ class CLISteps:
                 rows.append({"run": self.run, "start": counts()})
                 t0 = time.perf_counter()
                 state, tb = step(state, batch, generator, sampling_uniforms)
+                counted_step.trace = step.trace  # the CLI logs it
                 torch.cuda.synchronize()
                 row = rows[-1]
                 (s1, s2), (f1, f2), (e1, e2) = row["start"], row["forward"], counts()
@@ -1792,7 +1832,10 @@ def train_cli_phase(dev, card):
         runs = {r: _phase_means(logs[r]) for r in "abc"}
         n_steps, _, means = runs["c"][-1]
         share = 1 - means["step"] / sum(means[k] for k in ("data", "h2d", "step"))
-        PHASE9.update(share=share, loader_ms=loader_s / EVAL_FRAMES * 1e3, means=means)
+        PHASE9.update(share=share, loader_ms=loader_s / EVAL_FRAMES * 1e3, means=means,
+                      first_loss=steps.rows[0]["tb"]["total_loss"],
+                      step_ms=[r["ms"] for r in steps.rows if r["run"] == "c"],
+                      steps_per_s=statistics.median(e[1] for e in runs["c"]))
         print(f"train CLI ({card}): batch {batch_size}, {steps_per_epoch} steps an epoch, runs "
               f"(a) {secs['a']:.1f} s, (b) {secs['b']:.1f} s with its eval, (c) "
               f"{secs['c']:.1f} s; steps/s by epoch (a) {[e[1] for e in runs['a']]}, (b) "
@@ -2036,8 +2079,10 @@ def anchor_predict_phase(model, batch, what, card, want_a1):
           + ", ".join(f"{k} {v:.2f}" for k, v in breakdown.items())
           + f"; the rotated IoU + NMS over the top {runs[0][2]} proposals adds "
           f"{max(r[1] for r in runs) / 2**30:.2f} GiB at its peak", flush=True)
+    # one call: the trace of an anchor predict holds about 30,000 device ops,
+    # and reading three of them back took 48-54 s of the phase
     device_profile(lambda: model.predict(batch), f"predict ({what})",
-                   1e3 / statistics.median(fps))
+                   1e3 / statistics.median(fps), loops=1)
     return launches[0]
 
 
@@ -2213,8 +2258,9 @@ def anchor_train_phase(model, batch, what, card, dev, want):
           + f"; peak memory {peak / 2**30:.2f} GiB; launches a step (A1 forward, A1 dX, A2) "
           f"{got[:3]}; last tb: " + ", ".join(f"{k} {float(v):.4f}" for k, v in tb.items()),
           flush=True)
+    # one step: its trace holds about 97,000 device ops (93 s for two)
     device_profile(lambda: train_step(state, batch, generator), f"train step ({what})",
-                   statistics.median(ms), loops=2)
+                   statistics.median(ms), loops=1)
     dense_head_alone(model, batch, what, card)
     return got[:3]
 
@@ -2936,6 +2982,332 @@ def kitti_phase(dev, card):
     return entries
 
 
+REPO = Path(__file__).resolve().parent
+DP_RANKS = 2  # phase 17 (b): ranks sharing the one card
+
+
+def torchrun(nproc, target, args, what, timeout=600):
+    """``python -m torch.distributed.run --standalone --nproc_per_node nproc
+    target args`` from the repository's root, as a user launches the port on
+    several ranks (``target``: ``["-m", module]`` or a script and its first
+    arguments); -> (seconds, its output's lines). Raises with the end of the
+    output where it fails; at the time limit its whole process group is
+    killed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), *target, *args]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{what}: still running after {timeout} s; its output ends:\n"
+                             + out[-6000:])
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit code {proc.returncode}; its output ends:\n"
+                             + out[-6000:])
+    return time.perf_counter() - t0, out.splitlines()
+
+
+def rank_records(lines):
+    """{rank: {"steps": [(it, record)], "epochs": [record], "state": record,
+    "placement": text}} from the training CLI's per-rank lines."""
+    out = {}
+    for ln in lines:
+        m = re.search(r"  rank (\d+)/\d+  (step (\d+) |epoch \d+ |state |device )(.*)$", ln)
+        if not m:
+            continue
+        rec = out.setdefault(int(m.group(1)), {"steps": [], "epochs": []})
+        kind, body = m.group(2), m.group(4)
+        if kind.startswith("step"):
+            rec["steps"].append((int(m.group(3)), json.loads(body)))
+        elif kind.startswith("epoch"):
+            rec["epochs"].append(json.loads(body))
+        elif kind == "state ":
+            rec["state"] = json.loads(body)
+        else:
+            rec["placement"] = "device " + body
+    return out
+
+
+def _read_result(path, n_frames):
+    """A result.pkl with one finite record a frame, in dataset order."""
+    with open(path, "rb") as f:
+        annos = pickle.load(f)
+    want = [f"{EVAL_SEQ}#{i:04d}" for i in range(n_frames)]
+    if [a["frame_id"] for a in annos] != want or not all(
+            np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all() for a in annos):
+        raise AssertionError(f"{path}: frames {[a['frame_id'] for a in annos]}, want {want} "
+                             f"with finite detections")
+    return annos
+
+
+def results_within_eval_tier(got, want, what):
+    """The whole-predict tier of tests/test_torch_port_cli_eval.py: per
+    frame the same number of detections, paired by box with the same names;
+    every pair within 0.1 m and 0.01 in score, 95% within 1e-4 of the scale.
+    -> (pairs, tight, bit-equal)."""
+    box_scale = max([np.abs(a["boxes_lidar"]).max() for a in want if len(a["score"])] + [1e-3])
+    score_scale = max([np.abs(a["score"]).max() for a in want if len(a["score"])] + [1e-3])
+    n = tight = same = 0
+    for a, b in zip(got, want):
+        if len(a["score"]) != len(b["score"]):
+            raise AssertionError(f"{what} {a['frame_id']}: {len(a['score'])} detections, want "
+                                 f"{len(b['score'])}")
+        if not len(a["score"]):
+            continue
+        d = np.abs(a["boxes_lidar"][:, None, :6] - b["boxes_lidar"][None, :, :6]).max(-1)
+        pair = d.argmin(1)
+        if len(set(pair.tolist())) != len(pair) or not np.array_equal(a["name"], b["name"][pair]):
+            raise AssertionError(f"{what} {a['frame_id']}: detections do not pair one to one")
+        box_err = np.abs(a["boxes_lidar"] - b["boxes_lidar"][pair]).max(-1)
+        score_err = np.abs(a["score"] - b["score"][pair])
+        if box_err.max() > 0.1 or score_err.max() > 0.01:
+            worst = int(box_err.argmax())
+            raise AssertionError(
+                f"{what} {a['frame_id']}: box err {box_err.max()}, score err {score_err.max()} "
+                f"over {len(pair)} detections ({int((box_err == 0).sum())} boxes equal); the "
+                f"worst pair {a['boxes_lidar'][worst].tolist()} against "
+                f"{b['boxes_lidar'][pair[worst]].tolist()}")
+        tight += int(((box_err <= 1e-4 * box_scale) & (score_err <= 1e-4 * score_scale)).sum())
+        same += int(((box_err == 0) & (score_err == 0)).sum())
+        n += len(pair)
+    if tight < 0.95 * n:
+        raise AssertionError(f"{what}: {tight} of {n} detections within 1e-4 of the scale")
+    return n, tight, same
+
+
+DP_RANK_CHECKS = "--data-parallel-rank-checks"
+
+
+def dp_rank_checks(out_dir, argv):
+    """Phase 17's ranks of run (b1), each started by ``torchrun`` as
+    ``chip_smoke.py --data-parallel-rank-checks DIR <train CLI arguments>``:
+    this rank joins the process group, runs the training CLI's ``main`` on
+    ``argv`` in it with copies of the A1 forward, A1 as dX and A2 operands
+    of its first step kept as the kernels got them (the global batch norms'
+    moments included), then, once the CLI has returned, holds each kept
+    launch against its plain version, one rank at a time from the last
+    while the others wait (rank 0 last and timed, the card to itself).
+    Writes {use: [max err, shapes]} to DIR/rank_R.json."""
+    from cpd_tpu_torch.parallel import comm
+    rank, world, _ = comm.init_distributed()
+    rec = KernelRecorder(copy=True)
+    make, loss_step = parallel.make_train_step, VoxelRCNN.loss_step
+
+    def recorded_make_train_step():
+        step = make()
+        state = {"first": True}
+
+        def recorded_step(*args, **kwargs):
+            with rec if state["first"] else contextlib.nullcontext():
+                out = step(*args, **kwargs)
+            state["first"] = False
+            recorded_step.trace = step.trace  # the CLI logs it
+            return out
+        return recorded_step
+
+    def marked_loss_step(model, *args, **kwargs):
+        out = loss_step(model, *args, **kwargs)
+        rec.in_backward = True  # what the recorder sees next is the backward
+        return out
+
+    parallel.make_train_step, VoxelRCNN.loss_step = recorded_make_train_step, marked_loss_step
+    try:
+        train_cli.main(argv)
+    finally:
+        parallel.make_train_step, VoxelRCNN.loss_step = make, loss_step
+    torch.cuda.synchronize()
+    for turn in reversed(range(world)):
+        if turn == rank:
+            print(f"data parallel rank {rank}/{world}: the first step's kernel launches against "
+                  f"their plain versions", flush=True)
+            checks = recorded_train_checks(rec, timed=rank == 0)
+            with open(Path(out_dir) / f"rank_{rank}.json", "w") as f:
+                json.dump(checks, f, default=float)
+            rec.calls = {k: [] for k in rec.calls}
+            torch.cuda.empty_cache()
+        comm.synchronize()
+    comm.shutdown()
+
+
+def data_parallel_phase(dev, card):
+    """Phase 17: the training and evaluation CLIs on ranks that ``torchrun``
+    launches, on phase 9's yaml at full width and 8 written frames with
+    prototype banks, global batch 4. (a) NCCL at world size 1 (the route of a
+    host with a card a rank): ``--epochs 1`` (2 steps), then the eval CLI on
+    weights drawn from a seed. (b) 2 ranks sharing the card over gloo, 2
+    samples a rank: 2 steps stopped (``--debug_steps 2``), 2 more
+    auto-resumed with ``--eval_after 1``, 4 unbroken; then the eval CLI on
+    the seeded weights on 2 ranks. (b)'s first run starts its ranks through
+    ``dp_rank_checks``, which keeps the A1 forward, A1 as dX and A2 operands
+    of each rank's first step (global batch-norm moments) and holds them
+    against their plain versions once the CLI returns (rank 0 timed).
+    Gates: every step of every rank launches A1 35 + 33 and A2 35 (read
+    from the ranks' log lines); the ranks' final weights agree (their
+    checksums); (b)'s resumed checkpoint_epoch_1 equals the unbroken one bit
+    for bit; (b)'s first total loss within a relative 0.5 of phase 9's one
+    process on the same 4 samples and weights; finite losses, no step
+    skipped; the merged result.pkl of (b)'s eval holds the 8 frames in
+    dataset order and equals (a)'s (2 frames a forward on either side)
+    within the whole-predict tier of tests/test_torch_port_cli_eval.py.
+    Returns the kernels-line entries of (b)'s A1, dX and A2 (rank 0)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_eval_sequence(tmp, protos=True)
+        sets = ["DATA_CONFIG.DATA_PATH", str(tmp), "DATA_CONFIG.SAMPLED_INTERVAL.train", "1",
+                "DATA_CONFIG.SAMPLED_INTERVAL.test", "1"]
+        cfg = cfg_from_list(sets, cfg_from_yaml_file(EVAL_YAML, ConfigDict()))
+        batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+
+        checks_dir = tmp / "rank_checks"
+        checks_dir.mkdir()
+        train, test = ["-m", "cpd_tpu_torch.tools.train"], ["-m", "cpd_tpu_torch.tools.test"]
+        train_checked = [str(REPO / "chip_smoke.py"), DP_RANK_CHECKS, str(checks_dir)]
+        common = ["--cfg_file", EVAL_YAML, "--batch_size", str(batch_size), "--log_every", "1"]
+        # the evaluations read weights drawn from a seed (no --ckpt): after a
+        # few steps on drawn labels the model detects nothing to compare. (a)'s
+        # forwards take 2 frames, as each of (b)'s ranks does: cuBLAS and
+        # cuDNN choose their kernels by the batch, and the RoI head turns
+        # their rounding into other boxes
+        calls = [
+            ("a", 1, train, common + ["--output_dir", str(tmp / "P"), "--epochs", "1"]),
+            ("ae", 1, test, ["--cfg_file", EVAL_YAML, "--batch_size",
+                             str(batch_size // DP_RANKS), "--output_dir", str(tmp / "Pe")]),
+            ("b1", DP_RANKS, train_checked, common + ["--output_dir", str(tmp / "Q"), "--epochs",
+                                                      "2", "--debug_steps", "2",
+                                                      "--fix_random_seed"]),
+            ("b2", DP_RANKS, train, common + ["--output_dir", str(tmp / "Q"), "--epochs", "2",
+                                              "--eval_after", "1"]),
+            ("b3", DP_RANKS, train, common + ["--output_dir", str(tmp / "R"), "--epochs", "2"]),
+            ("be", DP_RANKS, test, ["--cfg_file", EVAL_YAML, "--batch_size", str(batch_size),
+                                    "--output_dir", str(tmp / "Qe")]),
+        ]
+        secs, recs = {}, {}
+        for run, nproc, target, args in calls:
+            secs[run], lines = torchrun(nproc, target, args + ["--set", *sets],
+                                        f"data parallel ({run})")
+            recs[run] = rank_records(lines)
+            if run == "a":
+                print(f"data parallel ({card}) run (a) log: " + " | ".join(
+                    ln for ln in lines if re.search(r"(  rank 0/1  device|INFO  device:)", ln)),
+                    flush=True)
+
+        # gates
+        want_steps = {"a": [1, 2], "b1": [1, 2], "b2": [3, 4], "b3": [1, 2, 3, 4]}
+        launch = {"forward": {"A1": TRAIN_A1_FORWARD, "A2": 0},
+                  "backward": {"A1": TRAIN_A1_DX, "A2": TRAIN_A2}}
+        for run, steps in want_steps.items():
+            ranks = recs[run]
+            if sorted(ranks) != list(range(1 if run == "a" else DP_RANKS)):
+                raise AssertionError(f"data parallel ({run}): rank lines of ranks {sorted(ranks)}")
+            for r, rec in ranks.items():
+                if [it for it, _ in rec["steps"]] != steps:
+                    raise AssertionError(f"data parallel ({run}) rank {r}: steps "
+                                         f"{[it for it, _ in rec['steps']]}, want {steps}")
+                bad = [(it, x["forward"], x["backward"]) for it, x in rec["steps"]
+                       if (x["forward"], x["backward"]) != (launch["forward"],
+                                                            launch["backward"])]
+                if bad:
+                    raise AssertionError(f"data parallel ({run}) rank {r}: launches (step, "
+                                         f"forward, backward) {bad}, want {launch} every step")
+            sums = {rec["state"]["checksum"] for rec in ranks.values()}
+            if len(sums) != 1:
+                raise AssertionError(f"data parallel ({run}): the ranks' weights differ: {sums}")
+        if "backend nccl" not in recs["a"][0]["placement"] or any(
+                "backend gloo" not in recs["b1"][r]["placement"] for r in range(DP_RANKS)):
+            raise AssertionError(f"data parallel: placements {recs['a'][0]['placement']!r}, "
+                                 f"{[recs['b1'][r]['placement'] for r in range(DP_RANKS)]!r}")
+        diff = _ckpt_difference(tmp / "Q" / "ckpt" / "checkpoint_epoch_1.pth",
+                                tmp / "R" / "ckpt" / "checkpoint_epoch_1.pth")
+        if diff is not None:
+            raise AssertionError(f"data parallel (b): the resumed run's checkpoint_epoch_1 "
+                                 f"differs from the unbroken run's, first at {diff}")
+        metrics = {}
+        for out in ("P", "Q", "R"):
+            with open(tmp / out / "metrics.jsonl") as f:
+                metrics[out] = [json.loads(ln) for ln in f]
+            for m in metrics[out]:
+                if not all(math.isfinite(v) for v in m.values()) or m["skipped_nonfinite"]:
+                    raise AssertionError(f"data parallel {out}: step {m['step']} {m}")
+        first = {out: metrics[out][0]["total_loss"] for out in ("P", "Q")}
+        rel = {out: abs(v - PHASE9["first_loss"]) / max(abs(v), abs(PHASE9["first_loss"]))
+               for out, v in first.items()}
+        if rel["Q"] >= 0.5:
+            raise AssertionError(f"data parallel (b): first total loss {first['Q']} against "
+                                 f"phase 9's {PHASE9['first_loss']}")
+        annos_a = _read_result(tmp / "Pe" / "result.pkl", EVAL_FRAMES)
+        annos_b = _read_result(tmp / "Qe" / "result.pkl", EVAL_FRAMES)
+        _read_result(tmp / "Q" / "eval_epoch_1" / "result.pkl", EVAL_FRAMES)
+        checks = []
+        for r in range(DP_RANKS):
+            with open(checks_dir / f"rank_{r}.json") as f:
+                checks.append(json.load(f))
+
+    # what was measured
+    def per_step(rec, kind, key):
+        return statistics.mean(x["collectives"][kind][key] for _, x in rec["steps"])
+
+    print(f"data parallel ({card}): (a) NCCL at world size 1, {recs['a'][0]['placement']}; "
+          f"(b) {DP_RANKS} ranks on the one card over gloo, "
+          f"{recs['b1'][0]['placement']}. Gloo stages a CUDA tensor's collective through the "
+          f"host: these are times of the gloo route on one shared card, not of NCCL across "
+          f"cards", flush=True)
+    print(f"data parallel ({card}): seconds a call (process start, build, data, steps, eval): "
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()), flush=True)
+    p9 = PHASE9["means"]
+    print(f"data parallel ({card}): phase 9, one process at batch 4: {PHASE9['steps_per_s']:.3f} "
+          f"steps/s, " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in p9.items())
+          + "; run (c)'s steps " + ", ".join(f"{ms:.1f}" for ms in PHASE9["step_ms"]) + " ms",
+          flush=True)
+    for run in ("a", "b1", "b2", "b3"):
+        for r, rec in sorted(recs[run].items()):
+            ep = rec["epochs"][-1]
+            peak = ep["peak_memory_bytes"]
+            print(f"data parallel ({card}) ({run}) rank {r}: {ep['steps_per_s']:.3f} steps/s, "
+                  + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in ep["means"].items())
+                  + "; each step's ms " + ", ".join(f"{x['step_ms']:.1f}" for _, x in rec["steps"])
+                  + f"; peak memory {peak / 2**30:.2f} GiB; a step: gradient bucket "
+                  f"{per_step(rec, 'grad', 'bytes') / 1e6:.2f} MB all-reduced in "
+                  f"{per_step(rec, 'grad', 'ms'):.2f} ms, {per_step(rec, 'norm', 'calls'):.0f} "
+                  f"norm collectives in {per_step(rec, 'norm', 'ms'):.2f} ms, "
+                  f"{per_step(rec, 'loss', 'calls'):.0f} loss counts in "
+                  f"{per_step(rec, 'loss', 'ms'):.2f} ms (CUDA events; a collective's time "
+                  f"includes its wait for the other rank)", flush=True)
+    print(f"data parallel ({card}): first total loss (b) {first['Q']:.6f}, (a) {first['P']:.6f}, "
+          f"phase 9's one process {PHASE9['first_loss']:.6f}: relative difference (b) "
+          f"{rel['Q']:.3e}, (a) {rel['P']:.3e}; ranks bit-equal after every run; (b) resume "
+          f"bit-equal", flush=True)
+    n_pairs, n_tight, n_same = results_within_eval_tier(annos_b, annos_a, "data parallel eval")
+    print(f"data parallel ({card}): the eval CLI on seeded weights, 2 frames a forward, "
+          f"(b)'s {DP_RANKS} ranks merged against (a)'s one: {EVAL_FRAMES} frames in order, "
+          f"{n_pairs} detections paired, {n_tight} within 1e-4 of the scale, {n_same} bit-equal",
+          flush=True)
+    print(f"data parallel ({card}): each rank's first step of (b) held against the plain "
+          f"versions, largest bf16 error (A1 forward, A1 as dX, A2): " + "; ".join(
+              f"rank {r} " + ", ".join(f"{c[use][0]:.3e}" for use in ("forward", "dx", "dw"))
+              for r, c in enumerate(checks)), flush=True)
+    print(f"data parallel phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    rank0 = [x for run in ("b1", "b2", "b3") for _, x in recs[run][0]["steps"]]
+    fwd, dx, a2 = (sum(x[part][k] for x in rank0) for part, k in
+                   (("forward", "A1"), ("backward", "A1"), ("backward", "A2")))
+    src1, src2 = "cpd_tpu_torch/csrc/gather_gemm.cu", "cpd_tpu_torch/csrc/gather_gemm_dw.cu"
+    path = f"data parallel (b), rank 0 of {DP_RANKS}, 2 samples a rank"
+    return [
+        kernel_entry("gather_gemm", path, src1, "cpd_tpu/ops/pallas_conv.py:77", fwd,
+                     *checks[0]["forward"]),
+        kernel_entry("gather_gemm (dX)", path, src1, "cpd_tpu/ops/pallas_conv.py:77", dx,
+                     *checks[0]["dx"]),
+        kernel_entry("gather_gemm_dw", path, src2, "cpd_tpu/ops/pallas_conv.py:130", a2,
+                     *checks[0]["dw"]),
+    ]
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     parser.add_argument("--determinism", type=int, metavar="RUNS",
@@ -3011,6 +3383,8 @@ def main():
     torch.cuda.empty_cache()
     kernels += kitti_phase(dev, card)
     torch.cuda.empty_cache()
+    kernels += data_parallel_phase(dev, card)
+    torch.cuda.empty_cache()
 
     kernels += training_phase(dev)
     kernels += probe_entries
@@ -3027,4 +3401,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [DP_RANK_CHECKS]:
+        dp_rank_checks(sys.argv[2], sys.argv[3:])
+    else:
+        main()

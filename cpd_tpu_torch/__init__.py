@@ -9,6 +9,7 @@ into ``_build/``. This package imports torch and never jax, flax or yaml
 point ``python -m cpd_tpu_torch.tools.test`` (yaml config, ``build_network``,
 ``.pth`` checkpoints, the Waymo data layer, AP), the training step
 (``VoxelRCNN.loss_step`` with the MM branch, and the adam_onecycle trainer of
-``parallel``) on one device, and the gather-formulation probes (``probes/``,
-kernels G1-G4 of ``ops/gather_probes.py``).
+``parallel``) on one device or data-parallel over ranks (``parallel.comm``),
+and the gather-formulation probes (``probes/``, kernels G1-G4 of
+``ops/gather_probes.py``).
 """

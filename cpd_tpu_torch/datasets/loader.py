@@ -8,6 +8,15 @@ thread pool prepares the samples of a batch and a background thread keeps
 sharded across processes like the reference's padded round-robin
 DistributedSampler (datasets/__init__.py:26-46). Batches stay NumPy until
 ``tools.train.device_batch`` moves them to the device.
+
+Across ``world_size`` ranks: in training (``drop_last``) rank r takes every
+world-th index of the epoch's order from r, so that its batch i of
+``batch_size`` and the other ranks' batch i together hold the samples of
+batch i of ``batch_size * world_size`` read by one process, and every rank
+has the same number of batches. In evaluation rank r reads the shard of
+``EvalDistributedSampler``, padded so that every rank has as many frames;
+``parallel.comm.merge_results_dist`` interleaves the ranks' results back into
+dataset order and drops the padding.
 """
 from __future__ import annotations
 
@@ -29,11 +38,14 @@ class _WorkerError:
 
 
 class EvalDistributedSampler:
-    """Padded, strided sharding of eval indices across processes."""
+    """Padded, strided sharding of eval indices across processes: the
+    indices, padded from their start (cyclically, where there are fewer
+    indices than ranks) to a multiple of ``world_size``; rank r takes every
+    world-th from r."""
 
     def __init__(self, n: int, world_size: int, rank: int):
         self.total = int(np.ceil(n / world_size)) * world_size
-        self.indices = list(range(n)) + list(range(self.total - n))
+        self.indices = list(range(n)) + [i % n for i in range(self.total - n)]
         self.shard = self.indices[rank::world_size]
 
     def __iter__(self):
@@ -69,8 +81,12 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
             rng.shuffle(idx)
-        # shard across processes (data-parallel hosts)
-        idx = idx[self.rank :: self.world_size]
+        # shard across processes (data-parallel ranks)
+        if self.drop_last:
+            # whole global batches only, so that every rank has len(self)
+            idx = idx[: len(self) * self.batch_size * self.world_size][self.rank :: self.world_size]
+        else:
+            idx = idx[EvalDistributedSampler(n, self.world_size, self.rank).shard]
         nb = len(idx) // self.batch_size
         if not self.drop_last and len(idx) % self.batch_size:
             nb += 1
@@ -78,8 +94,10 @@ class DataLoader:
             yield idx[i * self.batch_size : (i + 1) * self.batch_size]
 
     def __len__(self):
-        n = len(self.dataset) // self.world_size
-        return n // self.batch_size if self.drop_last else int(np.ceil(n / self.batch_size))
+        if self.drop_last:
+            return len(self.dataset) // self.world_size // self.batch_size
+        shard = int(np.ceil(len(self.dataset) / self.world_size))
+        return int(np.ceil(shard / self.batch_size))
 
     def __iter__(self) -> Iterator[dict]:
         """Collated batches in index order. A worker's exception is raised

@@ -21,6 +21,7 @@ from torch import nn
 from ..ops import iou3d
 from ..ops.box_coders import ResidualCoder
 from ..ops.geometry import limit_period
+from ..utils.collective import get_world_size
 from ..utils import loss as loss_utils
 from .bev import conv2d
 from .norm import BatchNorm2d
@@ -185,9 +186,12 @@ class AnchorHeadSingle(nn.Module):
 
     def get_loss(self, preds, gt_boxes, gt_valid):
         """Focal cls + sin-difference smooth-L1 reg + direction CE -> (total,
-        {"rpn_cls", "rpn_reg", "rpn_dir"})."""
+        {"rpn_cls", "rpn_reg", "rpn_dir"}). Positives are counted per sample;
+        the sums are divided by the global batch size (every rank holds the
+        same number of samples)."""
         aflat, labels, gt_idx = self.assign_targets(preds, gt_boxes, gt_valid)
         b = labels.shape[0]
+        b_global = b * get_world_size()
         cls_preds = preds["cls_preds"].reshape(b, -1, self.num_classes)
         box_preds = preds["box_preds"].reshape(b, -1, self.code_size)
         dir_preds = preds["dir_preds"].reshape(b, -1, self.num_dir_bins)
@@ -198,7 +202,7 @@ class AnchorHeadSingle(nn.Module):
         one_hot = one_hot * pos[..., None]
         num_pos = torch.clamp(pos.sum(dim=1, keepdim=True).float(), min=1.0)
         cls_w = cared.float() / num_pos
-        cls_loss = loss_utils.sigmoid_focal_loss(cls_preds, one_hot, cls_w).sum() / b
+        cls_loss = loss_utils.sigmoid_focal_loss(cls_preds, one_hot, cls_w).sum() / b_global
 
         matched_gt = torch.gather(gt_boxes, 1, gt_idx.long()[..., None].expand(-1, -1, 8))
         targets = self.coder.encode(matched_gt[..., :7], aflat.expand(b, -1, -1))
@@ -209,14 +213,14 @@ class AnchorHeadSingle(nn.Module):
                                                      * torch.sin(targets[..., 6]))[..., None]], -1)
         reg_w = pos.float() / num_pos
         reg_loss = loss_utils.weighted_smooth_l1_loss(
-            sin_diff_pred, sin_diff_tgt, reg_w, self.code_weights).sum() / b
+            sin_diff_pred, sin_diff_tgt, reg_w, self.code_weights).sum() / b_global
         rot_gt = matched_gt[..., 6] - self.dir_offset
         dir_tgt = torch.clamp(torch.floor(limit_period(rot_gt, 0.0, 2 * math.pi)
                                           / (2 * math.pi / self.num_dir_bins)).to(torch.int32),
                               0, self.num_dir_bins - 1)
         dir_oh = F.one_hot(dir_tgt.long(), self.num_dir_bins).float()
         dir_ce = -(dir_oh * torch.log_softmax(dir_preds, -1)).sum(-1)
-        dir_loss = (dir_ce * reg_w).sum() / b
+        dir_loss = (dir_ce * reg_w).sum() / b_global
         total = (self.cls_weight * cls_loss + self.loc_weight * reg_loss
                  + self.dir_weight * dir_loss)
         return total, {"rpn_cls": cls_loss, "rpn_reg": reg_loss, "rpn_dir": dir_loss}

@@ -23,6 +23,7 @@ from ..ops.box_coders import ResidualCoder
 from ..ops.geometry import limit_period, rotate_points_along_z
 from ..ops.iou3d import boxes_iou3d
 from ..ops.nms import top_k
+from ..utils.collective import global_sum
 from ..utils import loss as loss_utils
 from .norm import MaskedBatchNorm
 
@@ -434,16 +435,17 @@ class VoxelRCNNProtoHead(nn.Module):
         css = t["css"]
         valid = t["valid"].float()
         reg_mask = t["reg_valid_mask"].float() * css
-        reg_denom = torch.clamp(reg_mask.sum(), min=1.0)
+        reg_denom = torch.clamp(global_sum(reg_mask.sum()), min=1.0)
         # cls: BCE on soft IoU labels, CSS-weighted for positives; -1 labels
         # (the interval band of the 'cls' label type) are ignored
         labelled = (t["cls_labels"] >= 0.0).float()
         cls_w = torch.where(t["reg_valid_mask"], css, 1.0) * valid * labelled
         cls_tgt = torch.clamp(t["cls_labels"], 0.0, 1.0)
+        cls_denom = torch.clamp(global_sum(cls_w.sum()), min=1.0)
 
         def cls_loss_fn(logits):
             bce = loss_utils.binary_cross_entropy_with_logits(logits, cls_tgt)
-            return torch.sum(bce * cls_w) / torch.clamp(cls_w.sum(), min=1.0)
+            return torch.sum(bce * cls_w) / cls_denom
 
         def reg_loss_fn(reg_pred):
             l1 = loss_utils.weighted_smooth_l1_loss(reg_pred, reg_targets, reg_mask)
@@ -470,7 +472,7 @@ class VoxelRCNNProtoHead(nn.Module):
             #   the cosine consistency, masked by (cls_label >= 0) * css, ramped once.
             anchor = _local_anchor(rois)
             fgf = t["reg_valid_mask"].float() * valid
-            denom = fgf.sum() + 1.0
+            denom = global_sum(fgf.sum()) + 1.0  # the 1 once, after the sum over ranks
             # sanitize the INPUTS of masked rows (their decoded sizes can
             # overflow), then mask the output: see loss.sanitize_boxes
             p0 = loss_utils.sanitize_boxes(self.coder.decode(out["rcnn_reg"], anchor), fgf)

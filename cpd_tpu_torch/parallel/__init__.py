@@ -1,4 +1,5 @@
-"""Training on one device and the eval step (port of cpd_tpu/parallel)."""
+"""Training on one device or data-parallel over ranks, the eval step and the
+collectives (port of cpd_tpu/parallel)."""
 from .trainer import (ClippedAdamW, ClippedOptimizer, ClippedSGD, TrainState, build_optimizer,
                       cosine_onecycle_schedule, deterministic_cudnn, init_state, make_eval_step,
                       make_train_step, onecycle_momentum_schedule, resolve_device,

@@ -1,4 +1,4 @@
-"""The trainer on one device (port of cpd_tpu/parallel/trainer.py).
+"""The trainer (port of cpd_tpu/parallel/trainer.py).
 
 The CPD optimizer, adam_onecycle: gradients clipped to a global norm of 32,
 then AdamW with decoupled weight decay, the learning rate on a cosine
@@ -6,9 +6,18 @@ one-cycle schedule and Adam's b1 on the mirrored momentum schedule (high ->
 low -> high); ``adam`` and ``sgd`` clip the same way. A train step is
 forward + loss (``VoxelRCNN.loss_step``), backward, the non-finite guard,
 clip and update; ``step_generator`` seeds the step's random numbers (RoI
-sampling, dropout) from the run's seed and the step counter. Data-parallel
-training over several cards (gradient all-reduce, synchronised batch norm)
-is not ported.
+sampling, dropout) from the run's seed, the step counter and the rank.
+
+Data parallel over the ranks of a ``torch.distributed`` group
+(``comm.init_distributed``), with the JAX package's ``pjit`` semantics: the
+step is the one-device step on the GLOBAL batch, each rank holding its
+shard. The batch norms take their moments over every rank and the losses'
+batch-wide counts are global (``comm``), so each rank's loss is its share of
+the global loss; after the backward one all-reduce sums the shares'
+gradients (``all_reduce_gradients``), and only then do the clip, the norm and
+the guard read them: every rank updates, or skips, alike. No DDP wrapper:
+the step runs through ``loss_step``, not ``forward``, and DDP would average
+where the shares must be summed.
 
 ``init_state`` places the model with ``utils.device.place``: on the CUDA
 card unless the caller asks for another device; with no card and no such
@@ -28,6 +37,7 @@ import torch
 from torch import nn
 
 from ..utils.device import place, resolve_device  # noqa: F401 (resolve_device re-exported)
+from . import comm
 
 
 def _cosine_interpolate(start: float, end: float, pct: float) -> float:
@@ -229,12 +239,15 @@ def init_state(model: nn.Module, opt_cfg: Dict, total_steps: int, device=None) -
     return TrainState(0, model, build_optimizer(model.parameters(), opt_cfg, total_steps))
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The generator of one train step's random numbers (RoI-sampling
     uniforms, dropout masks) on ``device``, seeded from ``(seed, step)``
-    alone: a run resumed at step n draws what an unbroken run draws there
-    (the JAX trainer folds the step into one key drawn from the seed)."""
-    state = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0]
+    alone on rank 0 and from ``(seed, step, rank)`` on another rank: a run
+    resumed at step n draws what an unbroken run draws there (the JAX
+    trainer folds the step into one key drawn from the seed), and ranks
+    draw apart."""
+    entropy = (seed, step) if rank == 0 else (seed, step, rank)
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
 
@@ -254,17 +267,52 @@ def deterministic_cudnn():
         cudnn.benchmark, cudnn.deterministic = saved
 
 
+def all_reduce_gradients(params) -> int:
+    """Sum every parameter's gradient over the ranks with one all-reduce of
+    one flat f32 bucket: each gradient (zeros where this rank has None) and,
+    behind them, a 1 for each parameter that has one. A parameter that no
+    rank gave a gradient keeps None (the optimizer skips it, as on one
+    device). Returns the bucket's bytes; 0 at world size 1, where nothing
+    runs."""
+    if comm.get_world_size() == 1:
+        return 0
+    params = list(params)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    has = torch.tensor([float(p.grad is not None) for p in params], device=grads[0].device)
+    bucket = comm.all_reduce_(torch.cat([g.reshape(-1).float() for g in grads] + [has]), "grad")
+    offset = 0
+    for p, flag in zip(params, bucket[-len(params):].tolist()):
+        n = p.numel()
+        p.grad = bucket[offset:offset + n].view_as(p).to(p.dtype) if flag else None
+        offset += n
+    return bucket.numel() * bucket.element_size()
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Launches so far of the kernels a train step runs: A1 (forward and
+    dX) and A2 (dW)."""
+    from ..ops import gather_gemm
+    return {"A1": gather_gemm.gather_gemm.launches, "A2": gather_gemm.gather_gemm_dw.launches}
+
+
 def make_train_step():
     """-> ``train_step(state, batch, generator=None, sampling_uniforms=None)``
     returning ``(state, tb)``: one forward + loss + backward + update of
     ``state.model`` on the device ``init_state`` put it on.
 
     ``batch`` holds tensors (moved to that device if they are elsewhere); the
-    step counter goes in as ``cur_it``. Non-finite guard: when the gradient
-    norm is not finite the update is skipped, the batch-norm statistics that
-    the forward moved are put back, and ``tb["skipped_nonfinite"]`` is 1; the
-    step counter advances all the same (``tb["grad_norm"]`` reports the norm
-    before clipping)."""
+    step counter goes in as ``cur_it``. In a process group ``batch`` is this
+    rank's shard of the global batch, ``tb`` holds this rank's shares of the
+    losses (their sum over the ranks is the global loss) and the gradients
+    are summed over the ranks before the guard. Non-finite guard: when the
+    gradient norm is not finite the update is skipped, the batch-norm
+    statistics that the forward moved are put back, and
+    ``tb["skipped_nonfinite"]`` is 1; the step counter advances all the same
+    (``tb["grad_norm"]`` reports the norm before clipping).
+
+    ``train_step.trace`` describes the last step: the kernel launches of its
+    forward and of its backward (``kernel_launches``) and the gradient
+    bucket's bytes."""
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
                    sampling_uniforms=None):
         model, optimizer = state.model, state.optimizer
@@ -275,9 +323,17 @@ def make_train_step():
         buffers = list(model.buffers())
         saved = [b.clone() for b in buffers]
         optimizer.zero_grad(set_to_none=True)
+        launches = [kernel_launches()]
         with deterministic_cudnn():
             loss, tb = model.loss_step(batch, sampling_uniforms, generator)
+            launches.append(kernel_launches())
             loss.backward()
+        bucket_bytes = all_reduce_gradients(model.parameters())
+        launches.append(kernel_launches())
+        train_step.trace = {
+            "forward": {k: launches[1][k] - launches[0][k] for k in launches[0]},
+            "backward": {k: launches[2][k] - launches[1][k] for k in launches[0]},
+            "grad_bucket_bytes": bucket_bytes}
         gnorm = optimizer.step()
         finite = bool(torch.isfinite(gnorm))
         if not finite:
@@ -289,14 +345,16 @@ def make_train_step():
         state.step += 1
         return state, tb
 
+    train_step.trace = None
     return train_step
 
 
 def make_eval_step(model: nn.Module):
     """-> ``eval_step(batch)``: ``model.predict`` in eval mode under
     ``torch.no_grad()`` on the device the model lives on (port of
-    cpd_tpu/parallel/trainer.py:189, one device; tensors of ``batch`` that
-    are elsewhere are moved there)."""
+    cpd_tpu/parallel/trainer.py:189; tensors of ``batch`` that are elsewhere
+    are moved there). No collective: in eval mode the norms read their
+    running statistics, so each rank predicts its shard on its own."""
     model.eval()
     device = next(model.parameters()).device
 

@@ -12,6 +12,14 @@ with neither it evaluates weights drawn from a seed (a smoke run). Writes
 runs on the CUDA card; ``--device cpu`` asks for the CPU, and without a card
 and without it the CLI raises. The config is read into a fresh ConfigDict on
 every call (the JAX CLI merges into the global ``cfg``).
+
+Under ``torchrun`` (``torchrun --nproc_per_node N -m cpd_tpu_torch.tools.test
+...``) every rank predicts its shard of the frames (the loader's padded,
+strided ``EvalDistributedSampler``); ``parallel.comm.merge_results_dist``
+gathers the detections through ``<out>/tmpdir`` into dataset order on rank
+0, which alone writes ``result.pkl`` and the log and computes the AP; the
+frames/s line counts the frames of every rank. ``--batch_size`` is the global
+batch (default ``BATCH_SIZE_PER_GPU`` times the ranks).
 """
 from __future__ import annotations
 
@@ -24,7 +32,8 @@ from pathlib import Path
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--cfg_file", required=True)
-    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None,
+                   help="global batch size (default: BATCH_SIZE_PER_GPU x ranks)")
     p.add_argument("--workers", type=int, default=4)
     p.add_argument("--extra_tag", default="default")
     p.add_argument("--ckpt", default=None)
@@ -43,10 +52,11 @@ def parse_args(argv=None):
 
 def eval_one_checkpoint(model, loader, dataset, class_names, logger, out_dir,
                         debug_steps=0):
-    """The eval loop (reference eval_utils.py:24): predict every batch,
-    write result.pkl, score it. Returns the result dict."""
+    """The eval loop (reference eval_utils.py:24): predict every batch of
+    this rank's shard, merge the ranks' detections on rank 0, which writes
+    result.pkl and scores it. Returns the result dict ({} on other ranks)."""
     from ..evaluation.ap import recall_stats
-    from ..parallel import make_eval_step
+    from ..parallel import comm, make_eval_step
     from .train import device_batch
 
     eval_step = make_eval_step(model)
@@ -61,8 +71,15 @@ def eval_one_checkpoint(model, loader, dataset, class_names, logger, out_dir,
         n += batch["batch_size"]
         if debug_steps and i + 1 >= debug_steps:
             break
+    world = comm.get_world_size()
+    if world > 1:
+        det_annos = comm.merge_results_dist(det_annos, len(dataset), out_dir / "tmpdir")
+        if comm.get_rank() != 0:
+            return {}
+        n = len(det_annos)
     dt = time.time() - t0
-    logger.info(f"eval: {n} frames in {dt:.1f}s ({n / max(dt, 1e-6):.2f} f/s)")
+    logger.info(f"eval: {n} frames in {dt:.1f}s ({n / max(dt, 1e-6):.2f} f/s)"
+                + (f" over {world} ranks" if world > 1 else ""))
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(out_dir / "result.pkl", "wb") as f:
         pickle.dump(det_annos, f)
@@ -78,35 +95,54 @@ def main(argv=None, dataset=None, state=None):
     """Run the CLI on ``argv``. ``dataset`` replaces the one the config names;
     ``state``, a model, replaces the one ``build_network`` makes (it is moved
     to the device; checkpoints load into it). Returns the result dict (a dict
-    of them by epoch with ``--eval_all``)."""
+    of them by epoch with ``--eval_all``; {} on ranks other than 0). Under
+    ``torchrun`` it joins the process group (one the caller set up, as the
+    training CLI's ``--eval_after``, is kept) and leaves the group it joined
+    at the end."""
     args = parse_args(argv)
+    from ..parallel import comm
 
+    owned = not comm.is_initialized()
+    rank, world, device = comm.init_distributed(args.device)
+    try:
+        return _evaluate(args, dataset, state, rank, world, device)
+    finally:
+        if owned:
+            comm.shutdown()
+
+
+def _evaluate(args, dataset, state, rank, world, device):
     from ..config import ConfigDict, cfg_from_list, cfg_from_yaml_file
     from ..datasets import build_dataloader
     from ..datasets.registry import build_dataset
     from ..models import build_network
+    from ..parallel import comm
     from ..utils.checkpoint import list_checkpoints, load_checkpoint
     from ..utils.common import create_logger
-    from ..utils.device import place, resolve_device
+    from ..utils.device import place
     from ..utils.weights import seeded_state_dict
+    from .train import global_batch_size
 
-    device = resolve_device(args.device)
     cfg = cfg_from_yaml_file(args.cfg_file, ConfigDict())
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs, cfg)
 
-    batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    batch_size = global_batch_size(args.batch_size, int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU),
+                                   world)
     out_dir = Path(args.output_dir or f"output/{cfg.TAG}/{args.extra_tag}/eval")
     out_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(out_dir / "log_eval.txt")
+    logger = create_logger(out_dir / "log_eval.txt" if rank == 0 else None, rank=rank)
+    if world > 1:
+        logger.info(f"device: {device}  batch: {batch_size}  ranks: {world}  backend: "
+                    f"{comm.backend()}")
 
     root_path = cfg.DATA_CONFIG.get("DATA_PATH")
     if dataset is None:
         dataset = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, False, root_path, logger,
                                 test_iter=args.test_iter)
     test_set, test_loader, _ = build_dataloader(
-        cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size, root_path=root_path,
-        workers=args.workers, training=False, dataset=dataset,
+        cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size // world, root_path=root_path,
+        workers=args.workers, training=False, world_size=world, rank=rank, dataset=dataset,
     )
     model = state
     if model is None:
@@ -128,8 +164,10 @@ def main(argv=None, dataset=None, state=None):
         waited = 0.0
         results = {}
         while waited < args.max_waiting_mins * 60:
-            fresh = [c for c in list_checkpoints(args.ckpt_dir)
-                     if c[0] >= args.start_epoch and c[0] not in evaluated]
+            # rank 0 decides which checkpoints are new, so every rank
+            # evaluates the same ones in the same order
+            fresh = comm.broadcast_object([c for c in list_checkpoints(args.ckpt_dir)
+                                           if c[0] >= args.start_epoch and c[0] not in evaluated])
             if not fresh:
                 time.sleep(30)
                 waited += 30

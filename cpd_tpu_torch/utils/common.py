@@ -85,12 +85,14 @@ class MetricsLogger:
 
 class PhaseTimer:
     """Host seconds per named phase: ``with timer.phase("data"): ...``;
-    ``summary()`` gives the mean seconds of each phase. Work the card has
-    not finished when a phase ends is not in it."""
+    ``summary()`` gives the mean seconds of each phase, ``last`` the seconds
+    of each phase's latest run. Work the card has not finished when a phase
+    ends is not in it."""
 
     def __init__(self):
         self.totals = {}
         self.counts = {}
+        self.last = {}
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -98,7 +100,8 @@ class PhaseTimer:
         try:
             yield
         finally:
-            self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t0
+            self.last[name] = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + self.last[name]
             self.counts[name] = self.counts.get(name, 0) + 1
 
     def summary(self):

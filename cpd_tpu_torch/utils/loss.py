@@ -3,6 +3,11 @@ functions over batched tensors with validity masks. Weights and masks make
 padding slots contribute exactly zero, and masked rows are made finite
 BEFORE they are computed on (``sanitize_boxes``), so that neither the sum
 nor its gradient can pick up an inf or a NaN from a row that does not count.
+
+A batch-wide normaliser (a count of positives, of masked objects) is a count
+over the GLOBAL batch under data parallelism
+(``utils.collective.global_sum``), as under the JAX package's ``pjit``:
+each rank's loss is then its share of the global loss.
 """
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ import math
 import torch
 
 from ..ops.geometry import boxes_to_corners_3d
+from .collective import global_sum
 
 
 def safe_norm(x, dim: int = -1, eps: float = 1e-9):
@@ -50,26 +56,26 @@ def binary_cross_entropy_with_logits(logits, targets):
 def focal_loss_centernet(pred_hm, gt_hm, eps: float = 1e-4):
     """CornerNet penalty-reduced focal loss on sigmoid heatmaps. pred_hm
     (B, C, H, W) probabilities; gt_hm gaussian targets. Normalised by the
-    number of positives (gt == 1)."""
+    number of positives (gt == 1) over the global batch."""
     pred = torch.clamp(pred_hm, eps, 1.0 - eps)
     pos_mask = (gt_hm >= 1.0).to(pred.dtype)
     neg_weights = torch.pow(1.0 - gt_hm, 4.0)
     pos_loss = -torch.log(pred) * torch.pow(1.0 - pred, 2.0) * pos_mask
     neg_loss = -torch.log(1.0 - pred) * torch.pow(pred, 2.0) * neg_weights * (1.0 - pos_mask)
     loss = torch.sum(pos_loss) + torch.sum(neg_loss)
-    return loss / torch.clamp(torch.sum(pos_mask), min=1.0)
+    return loss / torch.clamp(global_sum(torch.sum(pos_mask)), min=1.0)
 
 
 def reg_loss_centernet(pred_map, targets, inds, mask):
     """L1 at the gathered heatmap-peak locations. pred_map (B, D, H, W);
     targets (B, N, D); inds (B, N) flat HW indices; mask (B, N). Returns the
-    per-channel (D,) mean over the masked objects."""
+    per-channel (D,) mean over the masked objects of the global batch."""
     b, d, h, w = pred_map.shape
     flat = pred_map.reshape(b, d, h * w)
     gathered = torch.gather(flat, 2, inds.long()[:, None, :].expand(-1, d, -1))  # (B, D, N)
     m = mask[..., None].to(pred_map.dtype)
     loss = torch.abs(gathered.transpose(1, 2) - targets) * m
-    return torch.sum(loss, dim=(0, 1)) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(loss, dim=(0, 1)) / torch.clamp(global_sum(torch.sum(m)), min=1.0)
 
 
 def sanitize_boxes(boxes, valid):
@@ -137,12 +143,12 @@ def bb_loss(pred_boxes, gt_boxes):
 
 def cosine_consistency_loss(feat_a, feat_b, mask=None):
     """Negative cosine between ``feat_a`` and the detached ``feat_b``,
-    averaged over the mask."""
+    averaged over the mask (over every row without one) of the global batch."""
     b = feat_b.detach()
     an = feat_a / safe_norm(feat_a)[..., None]
     bn = b / safe_norm(b)[..., None]
     cos = torch.sum(an * bn, dim=-1)
     if mask is not None:
         m = mask.to(cos.dtype)
-        return -torch.sum(cos * m) / torch.clamp(torch.sum(m), min=1.0)
-    return -torch.mean(cos)
+        return -torch.sum(cos * m) / torch.clamp(global_sum(torch.sum(m)), min=1.0)
+    return -torch.sum(cos) / global_sum(cos.new_tensor(float(cos.numel())))

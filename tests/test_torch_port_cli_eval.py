@@ -19,6 +19,7 @@ which holds the RoI head to 1e-4 on the same proposals). The result dicts:
 the same keys, and the difference between them accounted for by the pairs
 outside the 1e-4 tier (``test_result_dict_matches_the_jax_cli``).
 """
+import logging
 import os
 import pickle
 import subprocess
@@ -114,6 +115,12 @@ def cli_runs(tmp_path_factory):
     _, jax_cfg = load_pair(SHIPPED, SCALE_SETS)
     from tools import test as jax_cli
     tx = optax.sgd(0.1)
+    # the JAX create_logger gives a log file only to a logger without one: a
+    # file left by an earlier JAX CLI run in this process would take the lines
+    jax_logger = logging.getLogger("cpd_tpu")
+    for h in [h for h in jax_logger.handlers if isinstance(h, logging.FileHandler)]:
+        jax_logger.removeHandler(h)
+        h.close()
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("JAX_COMPILATION_CACHE_DIR", str(root / "jax_cache"))
         jconfig.cfg.clear()

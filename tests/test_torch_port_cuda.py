@@ -886,3 +886,27 @@ def test_factory_on_the_card_equals_the_cpu(cuda, tmp_path):
         assert banks[0][c].keys() == banks[1][c].keys()
         for t in banks[1][c]:
             np.testing.assert_array_equal(banks[0][c][t]["points"], banks[1][c][t]["points"])
+
+
+@pytest.mark.cuda
+def test_norm_collectives_on_ranks_sharing_the_card(cuda, tmp_path):
+    """``all_reduce_sum`` and MaskedBatchNorm (rank 1 with no valid row) on 2
+    gloo ranks whose tensors live on the one card, against one process on
+    the concatenated batch on the card: within 1e-5 of the scale, running
+    statistics bit-equal over the ranks."""
+    from tests.torch_dist_ranks import card_norms, make_norm, norm_inputs, norm_step, run_ranks
+    outs = run_ranks(card_norms, 2, tmp_path / "ranks")
+    for out in outs:
+        np.testing.assert_array_equal(out["reduce_y"], [1.0, 3.0, 5.0, 7.0])
+        np.testing.assert_array_equal(out["reduce_grad"], [3.0] * 4)
+    parts = [norm_inputs(r, "masked") for r in range(2)]
+    ref = norm_step(make_norm("masked"), *(np.concatenate([p[i] for p in parts])
+                                           for i in range(3)), device=cuda)
+    got = {k: np.concatenate([o["masked"][k] for o in outs]) for k in ("y", "x_grad")}
+    got.update({k: sum(o["masked"][k] for o in outs) for k in ("weight_grad", "bias_grad")})
+    for key in ("running_mean", "running_var"):
+        np.testing.assert_array_equal(outs[0]["masked"][key], outs[1]["masked"][key])
+        got[key] = outs[0]["masked"][key]
+    for key, v in got.items():
+        scale = max(float(np.abs(ref[key]).max()), 1e-3)
+        assert float(np.abs(v - ref[key]).max()) <= 1e-5 * scale, key

@@ -63,7 +63,7 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'yaml', 'sklearn', 'cpd_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 64, names\n"
+        "assert len(names) >= 66, names\n"
         "assert {'cpd_tpu_torch.utils.loss', 'cpd_tpu_torch.parallel.trainer',\n"
         "        'cpd_tpu_torch.ops.cuda_build', 'cpd_tpu_torch.ops.gather_probes',\n"
         "        'cpd_tpu_torch.probes.gather', 'cpd_tpu_torch.config',\n"
@@ -75,12 +75,28 @@ def test_port_imports_no_jax():
         "        'cpd_tpu_torch.unsupervised.outline', 'cpd_tpu_torch.unsupervised.tracker',\n"
         "        'cpd_tpu_torch.unsupervised.ground', 'cpd_tpu_torch.ops.radius',\n"
         "        'cpd_tpu_torch.ops.dbscan', 'cpd_tpu_torch.native',\n"
-        "        'cpd_tpu_torch.datasets.kitti', 'cpd_tpu_torch.utils.torch_import'} <= set(names)\n"
+        "        'cpd_tpu_torch.datasets.kitti', 'cpd_tpu_torch.utils.torch_import',\n"
+        "        'cpd_tpu_torch.parallel.comm', 'cpd_tpu_torch.utils.collective'} <= set(names)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_defines_each_name_once():
+    """No function, class or constant of chip_smoke.py is defined twice at
+    its top level (Python would keep the later one, silently)."""
+    import ast
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+    assert len(names) > 100
+    assert sorted({n for n in names if names.count(n) > 1}) == []
 
 
 def test_synthetic_frame_copy_identical():
