@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --determinism RUNS [--no-cudnn]   # phase 13 alone
+    python3 chip_smoke.py --registry                        # phase 18 alone
 
 Drives the port's paths at the bench configuration of the JAX package
 (bench.py: 3 classes, range +-75.2 x [-2, 4] m, voxels (0.1, 0.1, 0.15) m,
@@ -14,8 +15,10 @@ training CLI ``cpd_tpu_torch.tools.train`` on the shipped
 voxel_rcnn_cproto_center.yaml (batch 4, 8 written frames); the anchor-head
 models of the DBSCAN, OYSTER and PointPillars yamls (predict, a batch-2
 step, the training CLI on OYSTER); both CLIs on ranks under ``torchrun``
-(NCCL at one rank, gloo on 2 ranks sharing the card); the pseudo-label
-factory's builder
+(NCCL at one rank, gloo on 2 ranks sharing the card); the rest of the
+detector registry (VoxelBackBone8x, VoxelSetAbstraction with kernel F1,
+PartWraper, ConvGRU and CenterPoint through both CLIs, the X_TRAIN align
+path); the pseudo-label factory's builder
 (PPScore, MFCF + C_PROTO labels, the gt database) on a written 20-frame
 drive and the training CLI on its labels; the training step
 of ``cpd_tpu_torch.parallel``
@@ -26,7 +29,7 @@ raising on failure:
 
 1. card: needs CUDA; prints the card's name and power limit;
 2. build: compiles every kernel source under cpd_tpu_torch/csrc/ (A1, A2,
-   G1-G4, R1, R2) with nvcc for sm_90a, one process each, side by side, and
+   G1-G4, R1, R2, F1) with nvcc for sm_90a, one process each, side by side, and
    the native host library (cpd_tpu_torch/native/src/pointcloud.cpp) with
    g++ beside them, and prints
    what ptxas reports per kernel (registers a thread, spills; for each
@@ -206,6 +209,29 @@ raising on failure:
     the gradient bucket's MB and all-reduce ms, and the norm collectives'
     count and ms (gloo staged through the host on one card, not NCCL
     across cards).
+18. the rest of the detector registry (it runs right after phase 17), on
+    phase 9's yaml, 8 written frames and seeded weights through a ``.pth``:
+    (a) ``--set MODEL.BACKBONE_3D.NAME VoxelBackBone8x MODEL.PFE.NAME
+    VoxelSetAbstraction MODEL.WRAP_HEAD.NAME PartWraper
+    MODEL.TEMPORAL_MODEL.NAME ConvGRU``: A1 forward (24), A1 as dX (21) and
+    A2 (23) against their plain versions on one batch-4 step's operands,
+    kernel F1 against its plain version on one frame's 200k points and on
+    the batch of 4 at 2048 keypoints (indices equal, the launch alone and
+    the wrapper timed), the model's forward on that batch, which alone
+    reads the PFE (1 F1 and 12 A1 launches, finite keypoint features), the
+    evaluation CLI at batch 4 (12 A1 launches a batch, no F1: ``predict``
+    reads no keypoint feature) and 2 steps of the training CLI with a weight
+    decay of 1e-2 ((24, 21, 23) launches a step and no F1, finite losses
+    with ``wrap_loss``, every PFE weight its seeded value decayed by AdamW
+    alone); (b) ``--set MODEL.NAME CenterPoint`` through both CLIs ((21,
+    20, 21) a step), A1 forward, A1 as dX and A2 held on one batch-4 step's
+    operands and A1 on one batch-4 eval forward; (c) ``VoxelRCNN(align_stages=2,
+    align_method="mean")`` with ConvGRU over one ``points_prev1`` frame at
+    the bench width on XTransform clones of the bench frame: 42 A1
+    launches packed, 63 sequential, the two predicts within the
+    whole-predict tier, a finite ``loss_step``. Prints frames/s, step ms,
+    F1's and its plain version's ms and peak memory. ``--registry`` runs the
+    build and this phase alone.
 
 The last two lines of stdout are the card line and a JSON object; the line
 before them is the kernels JSON. For each use of A1 and A2 it gives the
@@ -227,7 +253,14 @@ shapes, and a bound from those inputs: bytes at 3.35 TB/s against the pairs
 the function needs at 8 operations each (R1: the neighbour pairs its counts
 hold; R2: the pairs within eps, each once, f64) over the CUDA cores' 67
 TFLOP/s f32 (34 f64), not the kernels' own walks, which test 3-6 times as
-many; ``library_ms`` is null (no PyTorch call computes either function).
+many; ``library_ms`` is null (no PyTorch call computes either function). F1
+(phase 18) gives the F1 launches of (a)'s keypoint forward (the CLIs
+launch none) and its ms (``forward_ms``), the median ms of the launch alone
+(``ms``) and of the whole wrapper (``wrapper_ms``) and the plain version's
+on one frame (and ``batch_*`` on the batch of 4), a bound
+of the bytes (coordinates and mask read once, indices written once) at 3.35
+TB/s against B x 2048 x N distance updates of 9 f32 operations at 67
+TFLOP/s; ``library_ms`` null.
 """
 import argparse
 import ast
@@ -258,6 +291,8 @@ from cpd_tpu_torch.models import build_network
 from cpd_tpu_torch.models.backbone3d import build_branch_rulebooks, stage_grids
 from cpd_tpu_torch.models.bev import height_compression
 from cpd_tpu_torch.models.anchor_head import point_density_anchor_mask
+from cpd_tpu_torch.datasets.augmentor import XTransform
+from cpd_tpu_torch.models.centerpoint import CenterPoint
 from cpd_tpu_torch.models.detector import VoxelRCNN, keys_from_frame, set_compute_dtype
 from cpd_tpu_torch.ops import cuda_build
 from cpd_tpu_torch.ops import gather_gemm as a1
@@ -267,6 +302,7 @@ from cpd_tpu_torch import parallel
 from cpd_tpu_torch.ops import nms
 from cpd_tpu_torch.ops import dbscan as r2
 from cpd_tpu_torch.ops import radius as r1
+from cpd_tpu_torch.ops import fps as f1
 from cpd_tpu_torch.ops.voxelizer import voxelize_batch
 from cpd_tpu_torch.parallel import init_state, make_train_step, step_generator
 from cpd_tpu_torch.probes import gather as probes
@@ -1597,17 +1633,19 @@ class CLISteps:
         self.run = None
 
     def __enter__(self):
-        self.saved = parallel.make_train_step, VoxelRCNN.loss_step
-        make, loss_step = self.saved
+        self.saved = parallel.make_train_step, VoxelRCNN.loss_step, CenterPoint.loss_step
+        make = self.saved[0]
         rows = self.rows
 
         def counts():
             return a1.gather_gemm.launches, a1.gather_gemm_dw.launches
 
-        def counted_loss_step(model, *args, **kwargs):
-            out = loss_step(model, *args, **kwargs)
-            rows[-1]["forward"] = counts()
-            return out
+        def counted(loss_step):
+            def counted_loss_step(model, *args, **kwargs):
+                out = loss_step(model, *args, **kwargs)
+                rows[-1]["forward"] = counts()
+                return out
+            return counted_loss_step
 
         def counted_make_train_step():
             step = make()
@@ -1626,11 +1664,12 @@ class CLISteps:
                 return state, tb
             return counted_step
 
-        parallel.make_train_step, VoxelRCNN.loss_step = counted_make_train_step, counted_loss_step
+        parallel.make_train_step = counted_make_train_step
+        VoxelRCNN.loss_step, CenterPoint.loss_step = (counted(f) for f in self.saved[1:])
         return self
 
     def __exit__(self, *exc):
-        parallel.make_train_step, VoxelRCNN.loss_step = self.saved
+        parallel.make_train_step, VoxelRCNN.loss_step, CenterPoint.loss_step = self.saved
 
 
 def _ckpt_difference(path_a, path_b):
@@ -3308,6 +3347,351 @@ def data_parallel_phase(dev, card):
     ]
 
 
+# phase 18, the rest of the registry at full width on phase 9's yaml and frames
+REGISTRY_SETS = ["MODEL.BACKBONE_3D.NAME", "VoxelBackBone8x", "MODEL.PFE.NAME",
+                 "VoxelSetAbstraction", "MODEL.WRAP_HEAD.NAME", "PartWraper",
+                 "MODEL.TEMPORAL_MODEL.NAME", "ConvGRU"]
+# at the yaml's decay of 1e-5 two AdamW steps move a weight by 6e-9 of itself,
+# below f32's resolution: the (a) training run decays by 1e-2, so that the
+# gate on the PFE's weights (no gradient reaches them) sees the decay
+REGISTRY_TRAIN_SETS = ["OPTIMIZATION.WEIGHT_DECAY", "0.01"]
+CENTERPOINT_SETS = ["MODEL.NAME", "CenterPoint"]
+# VoxelBackBone8x has 12 sparse convs a branch (conv_input, conv1, then a
+# strided conv and two submanifold convs at stages 2-4, conv_out). A training
+# step with MM runs both full branches: 24 forward; no loss reads branch 1's
+# conv_out, so it takes no dW and no dX: 23 dW, and a dX for each of the 23
+# but the two conv_input's: 21
+PLAIN_A1_PER_FORWARD = 12
+PLAIN_A1_FORWARD, PLAIN_A1_DX, PLAIN_A2 = 24, 21, 23
+FPS_KEYPOINTS = 2048  # VoxelSetAbstraction's default
+F1_OPS_PER_UPDATE = 9  # 3 subtractions, 1 product, 2 fused multiply-adds, sqrt, min, compare
+
+
+def registry_cli_pair(dev, card, tmp, name, extra_sets, train_extra, want_step):
+    """The evaluation CLI at batch 4 on a seeded checkpoint, then the
+    training CLI for 2 steps (``--epochs 1``), on phase 9's yaml with
+    ``extra_sets``. Gates: one finite record a frame in result.pkl; 2 steps,
+    each with ``want_step`` launches (A1 forward, A1 dX, A2, A2 in the
+    forward), finite losses and no step skipped. Returns what the phase
+    prints and gates on."""
+    sets = ["DATA_CONFIG.DATA_PATH", str(tmp), "DATA_CONFIG.SAMPLED_INTERVAL.train", "1",
+            "DATA_CONFIG.SAMPLED_INTERVAL.test", "1", *extra_sets]
+    cfg = cfg_from_list(sets, cfg_from_yaml_file(EVAL_YAML, ConfigDict()))
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+    model.load_state_dict(seeded_state_dict(model, 0), strict=True)
+    ckpt = save_checkpoint(tmp / f"ckpt_{name}", model, 0)
+    logger = logging.getLogger("cpd_tpu_torch")
+    lines = LogLines()
+    logger.addHandler(lines)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a1.gather_gemm.launches = f1.farthest_point_sample.launches = 0
+        eval_cli.main(["--cfg_file", EVAL_YAML, "--ckpt", str(ckpt), "--output_dir",
+                       str(tmp / f"eval_{name}"), "--set", *sets])
+        torch.cuda.synchronize()
+        eval_launches = a1.gather_gemm.launches, f1.farthest_point_sample.launches
+        eval_peak = torch.cuda.max_memory_allocated()
+        fps_line = next((ln for ln in lines.lines if ln.startswith("eval: ")), "")
+        with CLISteps() as steps:
+            steps.run = name
+            torch.cuda.reset_peak_memory_stats()
+            a1.gather_gemm.launches = a1.gather_gemm_dw.launches = 0
+            f1.farthest_point_sample.launches = 0
+            state = train_cli.main(["--cfg_file", EVAL_YAML, "--output_dir",
+                                    str(tmp / f"train_{name}"), "--epochs", "1", "--log_every",
+                                    "1", "--set", *sets, *train_extra])
+            torch.cuda.synchronize()
+            train_f1 = f1.farthest_point_sample.launches
+            train_peak = torch.cuda.max_memory_allocated()
+    finally:
+        logger.removeHandler(lines)
+    with open(tmp / f"eval_{name}" / "result.pkl", "rb") as f:
+        det_annos = pickle.load(f)
+    want_ids = [f"{EVAL_SEQ}#{i:04d}" for i in range(EVAL_FRAMES)]
+    if [a["frame_id"] for a in det_annos] != want_ids or not all(
+            np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
+            for a in det_annos):
+        raise AssertionError(f"{name} eval CLI: result.pkl incomplete or non-finite")
+    m = re.match(r"eval: (\d+) frames in ([\d.]+)s \(([\d.]+) f/s\)", fps_line)
+    if not m or int(m.group(1)) != EVAL_FRAMES:
+        raise AssertionError(f"{name} eval CLI: no frames/s line: {fps_line!r}")
+    if state.step != 2 or [r["launches"] for r in steps.rows] != [want_step] * 2:
+        raise AssertionError(f"{name} train CLI: {state.step} steps, launches "
+                             f"{[r['launches'] for r in steps.rows]}, want 2 x {want_step}")
+    for r in steps.rows:
+        bad = [k for k, v in r["tb"].items() if not math.isfinite(v)]
+        if bad or r["tb"]["skipped_nonfinite"]:
+            raise AssertionError(f"{name} train CLI step: non-finite {bad} or skipped")
+    return dict(cfg=cfg, state=state, rows=steps.rows, eval_launches=eval_launches,
+                train_f1=train_f1, cli_fps=float(m.group(3)), eval_peak=eval_peak,
+                train_peak=train_peak, n_det=sum(len(a["score"]) for a in det_annos))
+
+
+def pfe_decay_gate(run, seed):
+    """Every PFE weight after the training CLI's steps against its seeded
+    start moved by AdamW's decoupled decay alone (no gradient reaches the
+    PFE): p <- p - lr_t * wd * p per step, within 1e-6 relative, and moved."""
+    state = run["state"]
+    start = seeded_state_dict(build_network(run["cfg"].MODEL, len(run["cfg"].CLASS_NAMES),
+                                            run["cfg"].DATA_CONFIG), seed)
+    wd = state.optimizer.param_groups[0]["weight_decay"]
+    n = moved = 0
+    for key, p in state.model.named_parameters():
+        if not key.startswith("pfe."):
+            continue
+        want = start[key].to(p.device)
+        for t in range(state.optimizer.count):
+            want = want - state.optimizer.lr_schedule(t) * (wd * want)
+        err = float(((p.detach() - want).abs() / want.abs().clamp(min=1e-12)).max())
+        if err > 1e-6:
+            raise AssertionError(f"registry train CLI: {key} is not its seeded value decayed "
+                                 f"by AdamW alone (relative err {err})")
+        n += 1
+        moved += int(not torch.equal(p.detach(), start[key].to(p.device)))
+    if not n or moved != n:
+        raise AssertionError(f"registry train CLI: {moved} of {n} PFE weights moved")
+    return n
+
+
+def f1_check(points, valid, what, card):
+    """Kernel F1 against its plain version on ``points`` (B, N, C): indices
+    exactly equal, a second launch equal; median ms of the launch alone, of
+    the whole wrapper and of the plain version (in turns), and the bound:
+    the larger of the bytes (coordinates and mask read once, indices written
+    once) at 3.35 TB/s and B x K x N distance updates of 9 f32 operations at
+    67 TFLOP/s. -> (ms, wrapper ms, plain ms, bound ms, bound by, bytes, ops)."""
+    k = FPS_KEYPOINTS
+    got = f1.farthest_point_sample(points, valid, k)
+    ref = f1.farthest_point_sample_reference(points, valid, k)
+    if not (torch.equal(got, ref) and torch.equal(got, f1.farthest_point_sample(points, valid, k))):
+        diff = int((got != ref).sum())
+        raise AssertionError(f"F1 at {what}: {diff} indices differ from the plain version")
+    ops = f1.fps_operands(points, valid)
+    ms, wrapper_ms, plain_ms = paired_median_ms(
+        lambda: f1.fps_launch(*ops, k), lambda: f1.farthest_point_sample(points, valid, k),
+        lambda: f1.farthest_point_sample_reference(points, valid, k), reps=3)
+    b, n = valid.shape
+    nbytes = b * n * (12 + 1) + b * k * 4
+    n_ops = float(b) * k * n * F1_OPS_PER_UPDATE
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_CORE_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"F1 at {what} ({card}): B={b} N={n} K={k}, indices equal to the plain version's; "
+          f"launch {ms:.3f} ms, whole wrapper {wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"(medians of 3 in turns), bound {bound:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
+          f"{n_ops / 1e9:.2f} GFLOP)", flush=True)
+    return ms, wrapper_ms, plain_ms, bound, by
+
+
+def keypoint_forward(model, batch, card):
+    """F1's path: the registry model's forward in eval mode, the entry point
+    that returns the PFE's keypoint features (``predict`` and ``loss_step``
+    read none, as JAX's jit drops them). Counts set to 0 just before it and
+    read just after; gates: 1 F1 launch, 12 A1 launches, keypoint features
+    (B, 2048, D) finite, zero on padded keypoints. Prints its ms (a second
+    run) and returns {f1, a1, ms}."""
+    with torch.no_grad():
+        model(batch)
+        torch.cuda.synchronize()
+        a1.gather_gemm.launches = f1.farthest_point_sample.launches = 0
+        t0 = time.perf_counter()
+        out = model(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    got = {"f1": f1.farthest_point_sample.launches, "a1": a1.gather_gemm.launches, "ms": ms}
+    feats, kv = out["point_features"], out["point_valid"]
+    b = batch["points"].shape[0]
+    if (got["f1"], got["a1"]) != (1, PLAIN_A1_PER_FORWARD) \
+            or tuple(feats.shape[:2]) != (b, FPS_KEYPOINTS) or not torch.isfinite(feats).all() \
+            or feats[~kv].abs().sum() != 0 or not kv.any():
+        raise AssertionError(f"registry keypoint forward: (F1, A1) launches "
+                             f"({got['f1']}, {got['a1']}), want (1, {PLAIN_A1_PER_FORWARD}); "
+                             f"features {tuple(feats.shape)}")
+    print(f"registry (a) keypoint forward ({card}): batch {b}, {FPS_KEYPOINTS} keypoints a "
+          f"sample, {feats.shape[-1]} features each, {int(kv.sum())} valid; {ms:.1f} ms "
+          f"(1 F1 and {got['a1']} A1 launches)", flush=True)
+    return got
+
+
+def predict_records(pred):
+    """predict's fixed-size outputs -> one detection record a sample, as the
+    evaluation CLI writes them (for ``results_within_eval_tier``)."""
+    out = []
+    for i in range(pred["pred_boxes"].shape[0]):
+        v = pred["pred_valid"][i].cpu().numpy()
+        out.append({"frame_id": f"sample {i}",
+                    "boxes_lidar": pred["pred_boxes"][i].cpu().numpy()[v],
+                    "score": pred["pred_scores"][i].cpu().numpy()[v],
+                    "name": pred["pred_labels"][i].cpu().numpy()[v]})
+    return out
+
+
+def align_check(dev, card):
+    """Phase 18 (c): VoxelRCNN at the bench width with ``align_stages=2``
+    (mean fusion) and ConvGRU over one history frame, on XTransform clones
+    of the bench frame and ``points_prev1`` from another frame. Gates: the
+    packed predict launches A1 for one pass of the 2 clones (21) and one of
+    the history (21); the sequential predict 3 x 21; the two agree to the
+    whole-predict tier; a loss_step is finite. Prints both predicts' ms."""
+    frame = make_train_batch(0, batch=1)
+    prev, _ = make_lidar_frame(np.random.default_rng(1), N_POINTS)
+    rng = np.random.default_rng(0)
+    xt = XTransform(stages=2)
+    valid = frame["points_valid"][0]
+    boxes = frame["gt_boxes"][0].copy()
+    data = xt.input_transform({"points": frame["points"][0], "gt_boxes": boxes[:, :7]}, rng)
+    boxes[:, :7] = np.where(frame["gt_valid"][0][:, None], data["gt_boxes"], 0.0)
+    host = {"points": data["points"], "points_valid": valid, "points_stage1": data["points_stage1"],
+            "points_stage1_valid": valid, "transform_param": data["transform_param"],
+            "points_prev1": prev, "points_prev1_valid": np.ones(len(prev), bool),
+            "gt_boxes": boxes, "gt_valid": frame["gt_valid"][0],
+            "css_score": frame["css_score"][0]}
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v))[None].to(dev) for k, v in host.items()}
+    model = seeded_model(dict(BENCH, align_stages=2, align_method="mean", temporal_name="ConvGRU",
+                              num_frames=2), 0, dev)
+    runs = {}
+    for packed in (True, False):
+        model.pack_align_stages = packed
+        model.predict(batch)
+        torch.cuda.synchronize()
+        a1.gather_gemm.launches = 0
+        t0 = time.perf_counter()
+        pred = model.predict(batch)
+        torch.cuda.synchronize()
+        runs[packed] = (pred, a1.gather_gemm.launches, (time.perf_counter() - t0) * 1e3)
+    want = {True: 2 * A1_PER_FORWARD[False], False: 3 * A1_PER_FORWARD[False]}
+    if {k: v[1] for k, v in runs.items()} != want:
+        raise AssertionError(f"align: A1 launches (packed, sequential) "
+                             f"{runs[True][1]}, {runs[False][1]}, want {want[True]}, {want[False]}")
+    n, tight, same = results_within_eval_tier(predict_records(runs[False][0]),
+                                              predict_records(runs[True][0]), "align sequential")
+    model.pack_align_stages = True
+    model.train()
+    loss, tb = model.loss_step(batch, generator=step_generator(0, 0, dev))
+    model.eval()
+    bad = [k for k, v in tb.items() if not math.isfinite(float(v.detach()))]
+    if bad or not math.isfinite(float(loss.detach())):
+        raise AssertionError(f"align: non-finite loss_step terms {bad}")
+    print(f"align stages ({card}): VoxelRCNN at the bench width, 2 XTransform clones of the "
+          f"bench frame + 1 history frame through ConvGRU; packed predict {runs[True][2]:.1f} ms "
+          f"({runs[True][1]} A1 launches: the clones in one pass, the history in another), "
+          f"sequential {runs[False][2]:.1f} ms ({runs[False][1]}); {n} detections paired, "
+          f"{tight} within 1e-4 of the scale, {same} bit-equal; loss_step finite, total "
+          f"{float(loss.detach()):.4f}", flush=True)
+
+
+def registry_phase(dev, card):
+    """Phase 18: the rest of the detector registry at full width, on phase
+    9's yaml, 8 written frames of 200k points and seeded weights. (a)
+    VoxelBackBone8x, VoxelSetAbstraction, PartWraper and ConvGRU through
+    both CLIs (eval at batch 4, train 2 steps), with A1 forward, A1 as dX and
+    A2 held against their plain versions on the operands of one batch-4
+    step, F1 against its plain version on one frame's 200k points at 2048
+    keypoints (indices equal), the forward that reads the PFE (F1's path:
+    the CLIs' ``predict`` and ``loss_step`` read no keypoint feature and
+    launch no F1) and every PFE weight decayed by AdamW alone; (b)
+    CenterPoint through both CLIs, A1 forward, A1 as dX and A2 held on the
+    operands of one batch-4 step and A1 on one batch-4 eval forward; (c) the
+    X_TRAIN align path (``align_check``). Returns the kernels-line
+    entries."""
+    t0 = time.perf_counter()
+    seed = train_cli.parse_args(["--cfg_file", EVAL_YAML]).seed
+    src = "cpd_tpu_torch/csrc/gather_gemm.cu"
+    entries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_eval_sequence(tmp, protos=True)
+        base = ["DATA_CONFIG.DATA_PATH", str(tmp), "DATA_CONFIG.SAMPLED_INTERVAL.train", "1"]
+        cfg = cfg_from_list(base + REGISTRY_SETS, cfg_from_yaml_file(EVAL_YAML, ConfigDict()))
+        batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+        dataset = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, True, str(tmp))
+        _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+                                        training=True, seed=seed, dataset=dataset)
+        b0 = device_batch(next(iter(loader)), dev)
+        model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG)
+        model.load_state_dict(seeded_state_dict(model, seed), strict=True)
+        model = place(model, dev)
+        checks = train_kernel_checks(model, b0, step_generator(seed, 0, dev),
+                                     want=(PLAIN_A1_FORWARD, PLAIN_A1_DX, PLAIN_A2))
+        f1_frame = f1_check(b0["points"][:1], b0["points_valid"][:1], "one frame", card)
+        f1_batch = f1_check(b0["points"], b0["points_valid"], f"the batch of {batch_size}", card)
+        kp = keypoint_forward(model.eval(), b0, card)
+        del model
+        torch.cuda.empty_cache()
+        print(f"registry (a) kernel checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+
+        a = registry_cli_pair(dev, card, tmp, "registry", REGISTRY_SETS, REGISTRY_TRAIN_SETS,
+                              (PLAIN_A1_FORWARD, PLAIN_A1_DX, PLAIN_A2, 0))
+        n_batches = math.ceil(EVAL_FRAMES / batch_size)
+        if a["eval_launches"] != (PLAIN_A1_PER_FORWARD * n_batches, 0) or a["train_f1"]:
+            raise AssertionError(f"registry CLIs: (A1, F1) launches {a['eval_launches']} in the "
+                                 f"eval, F1 {a['train_f1']} in training; want "
+                                 f"({PLAIN_A1_PER_FORWARD * n_batches}, 0) and 0")
+        if not {"wrap_loss", "hm_loss", "rcnn_cls0"} <= set(a["rows"][0]["tb"]):
+            raise AssertionError(f"registry train CLI: tb keys {sorted(a['rows'][0]['tb'])}")
+        n_pfe = pfe_decay_gate(a, seed)
+        print(f"registry (a) CLIs ({card}): VoxelBackBone8x + VoxelSetAbstraction + PartWraper "
+              f"+ ConvGRU; eval CLI {a['cli_fps']:.3f} frames/s at batch {batch_size}, "
+              f"{a['n_det']} detections, peak {a['eval_peak'] / 2**30:.2f} GiB; train CLI steps "
+              + ", ".join(f"{r['ms']:.1f}" for r in a["rows"])
+              + f" ms (A1 {PLAIN_A1_FORWARD} forward + {PLAIN_A1_DX} dX, A2 {PLAIN_A2} a "
+              f"step), peak {a['train_peak'] / 2**30:.2f} GiB; {n_pfe} PFE weights moved by "
+              f"AdamW's decay alone; last tb: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in a["rows"][-1]["tb"].items()), flush=True)
+
+        b = registry_cli_pair(dev, card, tmp, "centerpoint", CENTERPOINT_SETS, (),
+                              (ANCHOR_A1_FORWARD, ANCHOR_A1_DX, ANCHOR_A2, 0))
+        if b["eval_launches"] != (A1_PER_FORWARD[False] * n_batches, 0):
+            raise AssertionError(f"CenterPoint eval CLI: (A1, F1) launches {b['eval_launches']}")
+        if set(b["rows"][0]["tb"]) != {"hm_loss", "loc_loss", "total_loss", "grad_norm",
+                                       "skipped_nonfinite"}:
+            raise AssertionError(f"CenterPoint train CLI: tb keys {sorted(b['rows'][0]['tb'])}")
+        cfg_b = cfg_from_list(base + CENTERPOINT_SETS, cfg_from_yaml_file(EVAL_YAML, ConfigDict()))
+        cp = build_network(cfg_b.MODEL, len(cfg_b.CLASS_NAMES), cfg_b.DATA_CONFIG)
+        cp.load_state_dict(seeded_state_dict(cp, 0), strict=True)
+        cp = place(cp, dev)
+        cp_checks = train_kernel_checks(cp, b0, step_generator(seed, 0, dev),
+                                        want=(ANCHOR_A1_FORWARD, ANCHOR_A1_DX, ANCHOR_A2))
+        convs = recorded_forward(cp.eval(), b0)
+        cp_err, cp_shapes = check_kernel("A1 CenterPoint predict", convs, a1_kernel, a1_plain,
+                                         torch.bfloat16)
+        del convs, cp
+        torch.cuda.empty_cache()
+        print(f"registry (b) CenterPoint ({card}): eval CLI {b['cli_fps']:.3f} frames/s at batch "
+              f"{batch_size}, {b['n_det']} detections, peak {b['eval_peak'] / 2**30:.2f} GiB; "
+              "train CLI steps " + ", ".join(f"{r['ms']:.1f}" for r in b["rows"])
+              + f" ms, peak {b['train_peak'] / 2**30:.2f} GiB; last tb: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in b["rows"][-1]["tb"].items()), flush=True)
+    align_check(dev, card)
+
+    for run, run_checks, what in ((a, checks, "VoxelBackBone8x + PFE + PartWraper + ConvGRU"),
+                                  (b, cp_checks, "CenterPoint")):
+        fwd, dx, dw = (sum(r["launches"][i] for r in run["rows"]) for i in range(3))
+        path = f"registry: {what}, train CLI, batch 4"
+        entries += [
+            kernel_entry("gather_gemm", path, src, "cpd_tpu/ops/pallas_conv.py:77", fwd,
+                         *run_checks["forward"]),
+            kernel_entry("gather_gemm (dX)", path, src, "cpd_tpu/ops/pallas_conv.py:77", dx,
+                         *run_checks["dx"]),
+            kernel_entry("gather_gemm_dw", path, "cpd_tpu_torch/csrc/gather_gemm_dw.cu",
+                         "cpd_tpu/ops/pallas_conv.py:130", dw, *run_checks["dw"])]
+    entries.append(kernel_entry("gather_gemm", "registry: CenterPoint, eval CLI, batch 4", src,
+                                "cpd_tpu/ops/pallas_conv.py:77", b["eval_launches"][0], cp_err,
+                                cp_shapes))
+    ms, wrapper_ms, plain_ms, bound, by = f1_frame
+    entries.append({"name": "farthest_point_sample",
+                    "path": "registry: PFE keypoints, model forward, batch 4",
+                    "route": "cuda", "source": "cpd_tpu_torch/csrc/farthest_point_sample.cu",
+                    "replaces": "cpd_tpu/ops/pool.py:408",
+                    "launches": kp["f1"], "max_abs_err": 0.0, "forward_ms": kp["ms"],
+                    "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": None, "batch_ms": f1_batch[0],
+                    "batch_plain_ms": f1_batch[2], "batch_bound_ms": f1_batch[3]})
+    print(f"registry phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return entries
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     parser.add_argument("--determinism", type=int, metavar="RUNS",
@@ -3315,6 +3699,8 @@ def main():
                              "under the scope (at least 2)")
     parser.add_argument("--no-cudnn", action="store_true",
                         help="with --determinism: the scope turns cuDNN off instead")
+    parser.add_argument("--registry", action="store_true",
+                        help="run only phase 18 (after the build) and print its kernels line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -3335,6 +3721,10 @@ def main():
     dev = torch.device("cuda")
     if args.determinism:
         step_determinism(dev, max(args.determinism, 2), cudnn=not args.no_cudnn)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.registry:
+        print(json.dumps({"kernels": registry_phase(dev, card)}))
         print(f"total {time.perf_counter() - t_start:.1f} s")
         return
     kernel_resource_lines()
@@ -3384,6 +3774,8 @@ def main():
     kernels += kitti_phase(dev, card)
     torch.cuda.empty_cache()
     kernels += data_parallel_phase(dev, card)
+    torch.cuda.empty_cache()
+    kernels += registry_phase(dev, card)
     torch.cuda.empty_cache()
 
     kernels += training_phase(dev)

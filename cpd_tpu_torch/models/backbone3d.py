@@ -1,4 +1,4 @@
-"""VoxelResBackBone8x (port of cpd_tpu/models/backbone3d.py).
+"""VoxelResBackBone8x and VoxelBackBone8x (port of cpd_tpu/models/backbone3d.py).
 
 Stage rulebooks are built once per stage and shared by every submanifold
 conv of that stage; every sparse convolution runs through kernel A1
@@ -299,3 +299,79 @@ class VoxelResBackBone8x(nn.Module):
         grids = stage_grids(self.grid)
         return {k: v if k == "encoded_bev" else (*v, grids[k.replace("_mm", "")])
                 for k, v in raw.items()}
+
+
+PLAIN_OUT_CHANNELS = 128  # VoxelBackBone8x's conv_out width
+
+
+class PlainBranch(nn.Module):
+    """One encoder branch of VoxelBackBone8x: the stage and stride layout of
+    ResBranch (``build_branch_rulebooks`` serves both) with plain stacks of
+    two submanifold convs in place of the residual blocks. conv_input +
+    conv1 (C0); down2/3/4 then conv{s}a, conv{s}b (C1, C2, C3); conv_out
+    kernel (1, 1, 3), z-stride 2, fixed at 128 channels whatever C3 is:
+    12 sparse convs."""
+
+    def __init__(self, in_channels: int = 5, num_filters=(16, 32, 64, 64),
+                 compute_dtype=torch.bfloat16):
+        super().__init__()
+        cd = compute_dtype
+        c0 = num_filters[0]
+        self.conv_input = SubMConvBN(in_channels, c0, compute_dtype=cd)
+        self.conv1 = SubMConvBN(c0, c0, compute_dtype=cd)
+        c_in = c0
+        for stage, c in enumerate(num_filters[1:], start=2):
+            self.add_module(f"down{stage}", StridedConvBN(c_in, c, 27, cd))
+            self.add_module(f"conv{stage}a", SubMConvBN(c, c, compute_dtype=cd))
+            self.add_module(f"conv{stage}b", SubMConvBN(c, c, compute_dtype=cd))
+            c_in = c
+        self.conv_out = StridedConvBN(c_in, PLAIN_OUT_CHANNELS, 3, cd)
+
+    def forward(self, features, rulebooks):
+        rb = rulebooks["subm1"]
+        rb_t = rulebooks.get("subm1_T")
+        x = self.conv1(self.conv_input(features, rb, rb_t), rb, rb_t)
+        out = {"x_conv1": (x, rb.out_keys)}
+        for stage in range(2, 5):
+            x = getattr(self, f"down{stage}")(x, rulebooks[f"down{stage}"],
+                                              rulebooks.get(f"down{stage}_T"))
+            rb = rulebooks[f"subm{stage}"]
+            rb_t = rulebooks.get(f"subm{stage}_T")
+            x = getattr(self, f"conv{stage}a")(x, rb, rb_t)
+            x = getattr(self, f"conv{stage}b")(x, rb, rb_t)
+            out[f"x_conv{stage}"] = (x, rb.out_keys)
+        x = self.conv_out(x, rulebooks["conv_out"], rulebooks.get("conv_out_T"))
+        out["encoded"] = (x, rulebooks["conv_out"].out_keys)
+        return out
+
+
+
+class VoxelBackBone8x(nn.Module):
+    """The plain (non-residual) 8x encoder of the registry (port of
+    cpd_tpu/models/backbone3d.py::VoxelBackBone8x). forward(features
+    (B, V, C), keys (B, V)) -> {name: (features, keys, GridSpec)} for
+    x_conv1..4 and encoded (128 channels). With ``mm=True``, in training
+    mode and given the proto-completed view, a second full branch adds
+    ``x_conv1_mm`` .. ``encoded_mm``. No dense tail: the JAX module takes
+    none."""
+
+    def __init__(self, grid: GridSpec, in_channels: int = 5,
+                 num_filters: Tuple[int, ...] = (16, 32, 64, 64),
+                 caps: Tuple[int, ...] = (80000, 60000, 40000, 40000),
+                 compute_dtype: Optional[torch.dtype] = torch.bfloat16, mm: bool = False):
+        super().__init__()
+        self.grid = grid
+        self.caps = tuple(caps)
+        self.branch0 = PlainBranch(in_channels, tuple(num_filters), compute_dtype)
+        if mm:
+            self.branch1 = PlainBranch(in_channels, tuple(num_filters), compute_dtype)
+
+    def forward(self, features, keys, features_mm=None, keys_mm=None):
+        train = self.training
+        raw = self.branch0(features, build_branch_rulebooks(keys, self.grid, self.caps, train))
+        if hasattr(self, "branch1") and train and features_mm is not None:
+            rbs_mm = build_branch_rulebooks(keys_mm, self.grid, self.caps, train)
+            for k, v in self.branch1(features_mm, rbs_mm).items():
+                raw[k + "_mm"] = v
+        grids = stage_grids(self.grid)
+        return {k: (*v, grids[k.replace("_mm", "")]) for k, v in raw.items()}

@@ -1,11 +1,19 @@
-"""The CPD detector (port of cpd_tpu/models/detector.py::VoxelRCNN).
+"""The CPD detector (port of cpd_tpu/models/detector.py::VoxelRCNN) and the
+detector registry.
 
 voxelize (MeanVFE fused) -> VoxelResBackBone8x (sparse convs through kernel
-A1; with ``dense_tail=True`` stage 4 and conv_out as dense conv3d) ->
-HeightCompression -> BaseBEVBackbone -> CenterHead proposals ->
-VoxelRCNNProtoHead -> final NMS (``predict``, eval mode), or in training
-mode -> dense-head and RoI-head losses (``loss_step``), with the MM siamese
-branch encoding the proto-completed view when ``mm=True``. The anchor heads
+A1; with ``dense_tail=True`` stage 4 and conv_out as dense conv3d) or the
+plain VoxelBackBone8x -> HeightCompression -> (temporal fusion) ->
+BaseBEVBackbone -> CenterHead proposals -> (PFE keypoints) ->
+VoxelRCNNProtoHead -> (PartWraper re-scoring) -> final NMS (``predict``,
+eval mode), or in training mode -> dense-head, RoI-head and wrap-head
+losses (``loss_step``), with the MM siamese branch encoding the
+proto-completed view when ``mm=True``. With ``align_stages`` > 1 and a
+batch from the X_TRAIN protocol (``points_stage{i}``, ``transform_param``)
+the stage clones run through the shared backbone, packed into the batch
+axis at eval and one after another in training, and their BEV maps are
+de-augmented into stage 0's frame and fused (``bev_align_params``). The
+anchor heads
 (``AnchorHeadSingle``, ``AnchorHeadSingleV2`` with its point-density anchor
 mask) take the CenterHead's place with their own proposal layer, and
 ``VoxelRCNNHead`` is the proto head with the MM branch off. The PointPillars
@@ -13,11 +21,12 @@ topology (``PillarVFE`` -> ``PointPillarScatter``) has no 3D backbone and no
 RoI head: its final NMS runs on the proposals. The constructor keeps the JAX
 module's field names, so the JAX package's model kwargs carry over; fields
 that only steer the TPU's compilation are taken and have no effect.
-``build_network`` builds the model from a yaml config's MODEL section, as
-the JAX package's does, for the modules that are ported.
+``build_network`` builds the model (VoxelRCNN or CenterPoint) from a yaml
+config's MODEL section, as the JAX package's does.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -27,37 +36,39 @@ from ..ops import nms as nms_ops
 from ..ops.sparse import GridSpec, keys_from_coords
 from ..ops.voxelizer import VoxelizerSpec, voxelize_batch
 from .anchor_head import AnchorHeadSingle, AnchorHeadSingleV2, point_density_anchor_mask
-from .backbone3d import VoxelResBackBone8x, stage_grids
-from .bev import BaseBEVBackbone, height_compression
+from .backbone3d import PLAIN_OUT_CHANNELS, VoxelBackBone8x, VoxelResBackBone8x, stage_grids
+from .bev import BaseBEVBackbone, bev_align_params, height_compression
 from .center_head import CenterHead
+from .centerpoint import CenterPoint
+from .part_wraper import PartWraper
+from .pfe import VoxelSetAbstraction
 from .pillars import PillarVFE, pointpillar_scatter
 from .roi_head import VoxelRCNNProtoHead
+from .temporal import TEMPORAL_MODELS, TemporalConcatenation
 
 
 # the module of each slot is chosen by its config NAME, as in the JAX package
-# (cpd_tpu/models/detector.py:38-62,545); each registry holds the names that
-# are ported. CenterPoint, VoxelBackBone8x and the TEMPORAL_MODEL, PFE and
-# WRAP_HEAD modules are not ported yet.
-_DETECTORS = ("VoxelRCNN",)
+# (cpd_tpu/models/detector.py:38-62,545); None is an empty slot
 # no BACKBONE_3D (None): the PointPillars topology
-_BACKBONES_3D = ("VoxelResBackBone8x", None)
+_BACKBONES_3D = ("VoxelResBackBone8x", "VoxelBackBone8x", None)
 _DENSE_HEADS = {"CenterHead": CenterHead, "AnchorHeadSingle": AnchorHeadSingle,
                 "AnchorHeadSingleV2": AnchorHeadSingleV2}
 # VoxelRCNNHead is the proto head with the MM branch off
 _ROI_HEADS = {"VoxelRCNNProtoHead": True, "VoxelRCNNHead": False}
 _VFES = ("MeanVFE", "PillarVFE")
 _MAP_TO_BEV = ("HeightCompression", "PointPillarScatter")
-_NO_MODULE = (None,)  # TEMPORAL_MODEL, PFE and WRAP_HEAD: only their absence
+_TEMPORAL = {**TEMPORAL_MODELS, None: None}
+_PFES = {"VoxelSetAbstraction": VoxelSetAbstraction, None: None}
+_WRAP_HEADS = {"PartWraper": PartWraper, None: None}
 # ROI_GRID_POOL keys that tune the TPU's pooling lookup table
 _TPU_ONLY_ROI_KEYS = ("pool_use_lut", "pool_lut_max_cells")
 
 
-def check_ported(slot: str, name, ported) -> None:
-    """Raise a KeyError naming ``name`` when the module it selects for
-    ``slot`` is not ported yet."""
-    if name not in ported:
-        raise KeyError(f"{slot} {name!r} is not ported yet (ported: "
-                       f"{[n for n in ported if n is not None] or 'none'})")
+def check_known(slot: str, name, known) -> None:
+    """Raise a KeyError naming ``name`` when no module of ``slot`` has it."""
+    if name not in known:
+        raise KeyError(f"unknown {slot} {name!r}; known: "
+                       f"{sorted(n for n in known if n is not None)}")
 
 
 def keys_from_frame(frame, grid: GridSpec):
@@ -66,8 +77,9 @@ def keys_from_frame(frame, grid: GridSpec):
 
 
 class VoxelRCNN(nn.Module):
-    """The CPD detector: VoxelResBackBone8x (or PillarVFE) -> BEV -> CenterHead
-    or an anchor head -> ProtoHead (or none).
+    """The CPD detector: VoxelResBackBone8x, VoxelBackBone8x or PillarVFE ->
+    BEV (-> temporal fusion) -> CenterHead or an anchor head (-> PFE) ->
+    ProtoHead or none (-> PartWraper).
     ``predict`` (after ``.eval()``) and ``loss_step`` (after ``.train()``) are
     the entry points."""
 
@@ -95,29 +107,37 @@ class VoxelRCNN(nn.Module):
                  bev_num_filters=(128, 256), bev_upsample_strides=(1, 2),
                  bev_num_upsample_filters=(256, 256)):
         """The JAX module's fields, all of them. ``remat``, ``remat_backbone``,
-        ``remat_roi``, ``bn_axis_name``, ``backbone_lut_max_cells`` and
-        ``pack_align_stages`` (and ``pool_use_lut`` / ``pool_lut_max_cells``
-        in ``roi_head_cfg``) steer the TPU's compilation and have no effect
-        here; ``temporal_features``, ``num_frames``, ``pfe_cfg`` and
-        ``align_method`` belong to modules that are not ported and have none
-        either. ``post_nms`` is stored: ``predict`` does not read it (neither
-        does the JAX module's). ``dense_head_cfg`` configures the anchor
-        heads (the CenterHead ignores it). A name that selects a module that
-        is not ported raises a KeyError; PillarVFE asks for
-        PointPillarScatter and no RoI head, and every other VFE for a 3D
-        backbone (ValueError), as in the JAX package."""
+        ``remat_roi``, ``bn_axis_name`` and ``backbone_lut_max_cells`` (and
+        ``pool_use_lut`` / ``pool_lut_max_cells`` in ``roi_head_cfg``) steer
+        the TPU's compilation and have no effect here. ``post_nms`` is
+        stored: ``predict`` does not read it (neither does the JAX module's).
+        ``dense_head_cfg`` configures the anchor heads (the CenterHead
+        ignores it). ``temporal_name`` fuses the BEV maps of the current
+        frame and up to ``num_frames`` - 1 history frames (``temporal_features``
+        wide); ``pfe_name`` adds keypoint features (``pfe_cfg``: num_keypoints,
+        nsample, ...) to the forward's outputs; ``wrap_head_name`` re-scores
+        the boxes. ``align_stages`` > 1 fuses the X_TRAIN stage clones'
+        maps by ``align_method``, packed into the batch axis at eval when
+        ``pack_align_stages``. A name that selects no module raises a
+        KeyError; PillarVFE asks for PointPillarScatter and no RoI head, and
+        every other VFE for a 3D backbone (ValueError), as in the JAX
+        package."""
         super().__init__()
-        check_ported("BACKBONE_3D.NAME", backbone3d_name, _BACKBONES_3D)
-        check_ported("DENSE_HEAD.NAME", dense_head_name, _DENSE_HEADS)
-        check_ported("ROI_HEAD.NAME", roi_head_name, _ROI_HEADS)
-        check_ported("VFE.NAME", vfe_name, _VFES)
-        check_ported("MAP_TO_BEV.NAME", map_to_bev_name, _MAP_TO_BEV)
-        check_ported("TEMPORAL_MODEL.NAME", temporal_name, _NO_MODULE)
-        check_ported("PFE.NAME", pfe_name, _NO_MODULE)
-        check_ported("WRAP_HEAD.NAME", wrap_head_name, _NO_MODULE)
-        if align_stages != 1:
-            raise KeyError(f"align_stages={align_stages}: the X_TRAIN stage clones are not "
-                           "ported yet")
+        check_known("BACKBONE_3D.NAME", backbone3d_name, _BACKBONES_3D)
+        check_known("DENSE_HEAD.NAME", dense_head_name, _DENSE_HEADS)
+        check_known("ROI_HEAD.NAME", roi_head_name, _ROI_HEADS)
+        check_known("VFE.NAME", vfe_name, _VFES)
+        check_known("MAP_TO_BEV.NAME", map_to_bev_name, _MAP_TO_BEV)
+        check_known("TEMPORAL_MODEL.NAME", temporal_name, _TEMPORAL)
+        check_known("PFE.NAME", pfe_name, _PFES)
+        check_known("WRAP_HEAD.NAME", wrap_head_name, _WRAP_HEADS)
+        self.align_stages = align_stages
+        self.align_method = align_method
+        self.pack_align_stages = pack_align_stages
+        self.temporal_name = temporal_name
+        self.num_frames = num_frames
+        self.pfe_name = pfe_name
+        self.wrap_head_name = wrap_head_name
         self.pillars = vfe_name == "PillarVFE"
         if self.pillars:
             if map_to_bev_name != "PointPillarScatter":
@@ -144,11 +164,26 @@ class VoxelRCNN(nn.Module):
         if self.pillars:
             self.vfe = PillarVFE(num_point_features, vfe_filters)
             bev_channels = self.vfe.num_filters[-1]
+        elif backbone3d_name == "VoxelBackBone8x":  # no dense tail, as in JAX
+            self.backbone = VoxelBackBone8x(self.grid, num_point_features, backbone_filters,
+                                            backbone_caps, mm=mm)
+            bev_channels = grids["encoded"].nz * PLAIN_OUT_CHANNELS
         else:
             self.backbone = VoxelResBackBone8x(self.grid, num_point_features,
                                                backbone_filters, backbone_caps, mm=mm,
                                                dense_tail=dense_tail)
             bev_channels = grids["encoded"].nz * backbone_filters[3]
+        if temporal_name is not None:
+            t_cls = _TEMPORAL[temporal_name]
+            self.temporal = (t_cls(bev_channels, num_frames, temporal_features)
+                             if t_cls is TemporalConcatenation
+                             else t_cls(bev_channels, temporal_features))
+            bev_channels = temporal_features
+        if pfe_name is not None and not self.pillars:  # JAX runs it on voxel features only
+            self.pfe = _PFES[pfe_name](
+                {"x_conv3": backbone_filters[2], "x_conv4": backbone_filters[3]}, bev_channels,
+                voxel_size=voxel_size, point_cloud_range=point_cloud_range,
+                **dict(pfe_cfg or {}))
         self.bev_backbone = BaseBEVBackbone(
             bev_channels, bev_layer_nums, bev_layer_strides, bev_num_filters,
             bev_upsample_strides, bev_num_upsample_filters)
@@ -169,21 +204,45 @@ class VoxelRCNN(nn.Module):
                 num_rois=num_rois, roi_per_image=roi_per_image, grid_size=roi_grid_size,
                 voxel_size=voxel_size, point_cloud_range=point_cloud_range,
                 mm=mm and _ROI_HEADS[roi_head_name], **roi_cfg)
+        if wrap_head_name is not None:
+            self.wrap_head = _WRAP_HEADS[wrap_head_name](
+                head_channels, point_cloud_range, voxel_size=voxel_size)
 
     @property
     def _anchor_head(self) -> bool:
         return self.dense_head_name != "CenterHead"
 
-    def forward(self, batch: Dict[str, torch.Tensor], sampling_uniforms=None, generator=None):
+    def forward(self, batch: Dict[str, torch.Tensor], sampling_uniforms=None, generator=None,
+                keypoints: bool = True):
         """batch: points (B, P, C), optional points_valid (B, P); in training
         mode also gt_boxes (B, N, 8), gt_valid, optionally css_score and, with
         ``mm``, the proto-completed view points1 / points1_valid (falling back
-        to the raw points). ``sampling_uniforms`` and ``generator`` feed the
-        RoI sampling and the dropout (see ``VoxelRCNNProtoHead.forward``)."""
+        to the raw points); with ``align_stages`` > 1 the clones
+        points_stage{i} (/ _valid) and transform_param (B, S, n_cfg); with a
+        temporal model the history points_prev{i} (/ _valid), where a
+        missing key ends the window. ``sampling_uniforms`` and ``generator``
+        feed the RoI sampling and the dropout (see
+        ``VoxelRCNNProtoHead.forward``). With a PFE and ``keypoints`` the
+        outputs hold its keypoint features; ``predict`` and ``loss_step``
+        read none and ask for none, as JAX's jit drops them there."""
         if self.pillars:
             bev = self._pillar_bev(batch["points"], batch.get("points_valid"))
-            return self._bev_to_heads(bev, {}, batch, sampling_uniforms, generator)
-        frame = voxelize_batch(batch["points"], self.vox_spec, batch.get("points_valid"))
+            return self._bev_to_heads(bev, {}, batch, sampling_uniforms, generator, keypoints)
+        b, stages = batch["points"].shape[0], self.align_stages
+        aligning = stages > 1 and "transform_param" in batch and "points_stage1" in batch
+        # packed at eval only, as in JAX: in training each stage's batch norm
+        # takes its own batch statistics, one pass after another
+        packing = aligning and self.pack_align_stages and not self.training
+        if packing:
+            ones = torch.ones(batch["points"].shape[:2], dtype=torch.bool,
+                              device=batch["points"].device)
+            pts = torch.cat([batch["points"]] + [batch[f"points_stage{i}"]
+                                                 for i in range(1, stages)])
+            pv = torch.cat([batch.get("points_valid", ones)]
+                           + [batch.get(f"points_stage{i}_valid", ones) for i in range(1, stages)])
+            frame = voxelize_batch(pts, self.vox_spec, pv)
+        else:
+            frame = voxelize_batch(batch["points"], self.vox_spec, batch.get("points_valid"))
         keys = keys_from_frame(frame, self.grid)
         feats_mm = keys_mm = None
         if self.mm and self.training:
@@ -197,10 +256,42 @@ class VoxelRCNN(nn.Module):
             bev = backbone_out.pop("encoded_bev")
         else:
             bev = height_compression(*backbone_out["encoded"])
-        return self._bev_to_heads(bev, backbone_out, batch, sampling_uniforms, generator)
+        if aligning:
+            if packing:
+                maps = list(bev.split(b))
+                # only stage 0's rows feed the RoI head and the PFE
+                backbone_out = {k: (f[:b], ky[:b], g) for k, (f, ky, g) in backbone_out.items()}
+            else:
+                maps = [bev] + [self._bev_single(batch[f"points_stage{i}"],
+                                                 batch.get(f"points_stage{i}_valid"))
+                                for i in range(1, stages)]
+            bev = bev_align_params(maps, batch["transform_param"], self.point_cloud_range,
+                                   self.voxel_size[0] * 8, fusion=self.align_method)
+        return self._bev_to_heads(bev, backbone_out, batch, sampling_uniforms, generator,
+                                  keypoints)
 
-    def _bev_to_heads(self, bev, backbone_out, batch, sampling_uniforms, generator):
+    def _bev_single(self, points, valid):
+        """The BEV map of one set of frames through the shared encoders (the
+        X_TRAIN clones, the temporal history)."""
+        if self.pillars:
+            return self._pillar_bev(points, valid)
+        frame = voxelize_batch(points, self.vox_spec, valid)
+        bo = self.backbone(frame.features, keys_from_frame(frame, self.grid))
+        if "encoded_bev" in bo:
+            return bo["encoded_bev"]
+        return height_compression(*bo["encoded"])
+
+    def _bev_to_heads(self, bev, backbone_out, batch, sampling_uniforms, generator, keypoints):
         train = self.training
+        if self.temporal_name is not None:
+            maps = [bev]
+            for i in range(1, self.num_frames):
+                k = f"points_prev{i}"
+                if k not in batch:
+                    break
+                maps.append(self._bev_single(batch[k], batch.get(k + "_valid")))
+            # f32, as JAX stacks a fused f32 map with bf16 history maps
+            bev = self.temporal(torch.stack([m.float() for m in maps], dim=1))
         st_features_2d = self.bev_backbone(bev)
         n_rois = self.num_rois if train else self.num_rois_test
         rpn_nms = dict(self.rpn_nms, NMS_POST_MAXSIZE=n_rois)
@@ -223,9 +314,22 @@ class VoxelRCNN(nn.Module):
                     post_max_size=n_rois)
         out = {"head_preds": head_preds, "backbone_out": backbone_out}
         out.update(proposals)
+        if keypoints and self.pfe_name is not None and backbone_out:
+            # keypoint features, exposed for downstream consumers: no loss reads them
+            valid = batch.get("points_valid")
+            if valid is None:
+                valid = torch.ones(batch["points"].shape[:2], dtype=torch.bool,
+                                   device=batch["points"].device)
+            out["point_coords"], out["point_features"], out["point_valid"] = self.pfe(
+                batch["points"], valid, backbone_out, bev)
         if self.with_roi_head:
             out.update(self.roi_head(proposals, backbone_out, batch, sampling_uniforms,
                                      generator))
+        if self.wrap_head_name is not None:
+            # the part confidences replace the box scores in post-processing
+            out["wrap_boxes"] = out.get("batch_box_preds", out["rois"])[..., :7]
+            out["wrap_conf"], _ = self.wrap_head(st_features_2d, out["wrap_boxes"],
+                                                 out["roi_valid"])
         return out
 
     def _pillar_bev(self, points, valid):
@@ -284,6 +388,11 @@ class VoxelRCNN(nn.Module):
             rcnn_loss, tb2 = self.roi_head.get_loss(out, batch)
             tb.update(tb2)
             total = total + rcnn_loss
+        if "wrap_conf" in out:
+            tb["wrap_loss"] = self.wrap_head.get_loss(out["wrap_conf"], out["wrap_boxes"],
+                                                      out["roi_valid"], batch["gt_boxes"],
+                                                      batch["gt_valid"])
+            total = total + tb["wrap_loss"]
         tb["rpn_loss"] = rpn_loss
         tb["total_loss"] = total
         return total, tb
@@ -292,20 +401,23 @@ class VoxelRCNN(nn.Module):
         """Training forward + loss (call after ``.train()``): (total, tb)."""
         if not self.training:
             raise RuntimeError("loss_step needs training mode: call .train() first")
-        return self.compute_loss(self(batch, sampling_uniforms, generator), batch)
+        return self.compute_loss(self(batch, sampling_uniforms, generator, keypoints=False),
+                                 batch)
 
     @torch.no_grad()
     def predict(self, batch):
         """Forward + final NMS -> fixed-size (B, post) pred_boxes /
         pred_scores / pred_labels / pred_valid."""
-        return self.post_processing(self(batch))
+        return self.post_processing(self(batch, keypoints=False))
 
     def post_processing(self, out, score_thresh=0.01, nms_cfg=None, post_max=500):
-        """Final NMS over the refined boxes, or over the proposals of a model
-        without a RoI head."""
+        """Final NMS over the refined boxes (scored by the wrap head where
+        there is one), or over the proposals of a model without a RoI head."""
         nms_cfg = nms_cfg or {"NMS_THRESH": 0.3, "NMS_PRE_MAXSIZE": 4096,
                               "NMS_POST_MAXSIZE": post_max}
-        if "batch_box_preds" in out:  # refined by the RoI head
+        if "wrap_conf" in out:
+            boxes, scores = out["wrap_boxes"], out["wrap_conf"]
+        elif "batch_box_preds" in out:  # refined by the RoI head
             boxes = out["batch_box_preds"]
             scores = torch.sigmoid(out["batch_cls_preds"][..., 0])
         else:
@@ -322,6 +434,10 @@ class VoxelRCNN(nn.Module):
             res.append((b[idx], s[idx], l[idx], mask))
         fb, fs, fl, fv = (torch.stack(t) for t in zip(*res))
         return {"pred_boxes": fb, "pred_scores": fs, "pred_labels": fl, "pred_valid": fv}
+
+
+_DETECTORS = {"VoxelRCNN": VoxelRCNN, "CenterPoint": CenterPoint}
+
 
 def set_compute_dtype(model: nn.Module, dtype) -> nn.Module:
     """Every module of ``model`` that computes in a ``compute_dtype`` (sparse
@@ -395,16 +511,18 @@ def _roi_head_cfg(roi):
     return cfg
 
 
-def build_network(model_cfg, num_class: int, data_cfg) -> VoxelRCNN:
+def build_network(model_cfg, num_class: int, data_cfg) -> nn.Module:
     """Config-driven detector factory (port of cpd_tpu/models/detector.py:608).
 
-    The module of each slot is chosen by its yaml NAME; a name whose module
-    is not ported yet raises a KeyError that names it. ``model_cfg`` /
-    ``data_cfg``: the MODEL and DATA_CONFIG sections (dicts or ConfigDicts).
-    The model comes back on the CPU with zero weights: load a state dict,
-    then place it (``utils.device.place``).
+    MODEL.NAME picks VoxelRCNN or CenterPoint, and the module of each slot
+    is chosen by its yaml NAME; an unknown name raises a KeyError that names
+    it. CenterPoint takes the fields it declares and ignores the rest, as in
+    JAX. ``model_cfg`` / ``data_cfg``: the MODEL and DATA_CONFIG sections
+    (dicts or ConfigDicts). The model comes back on the CPU with zero
+    weights: load a state dict, then place it (``utils.device.place``).
     """
-    check_ported("MODEL.NAME", model_cfg.get("NAME", "VoxelRCNN"), _DETECTORS)
+    name = model_cfg.get("NAME", "VoxelRCNN")
+    check_known("MODEL.NAME", name, _DETECTORS)
     pcr = tuple(data_cfg["POINT_CLOUD_RANGE"])
     vox_cfg = None
     for proc in data_cfg["DATA_PROCESSOR"]:
@@ -416,13 +534,13 @@ def build_network(model_cfg, num_class: int, data_cfg) -> VoxelRCNN:
     dh = model_cfg.get("DENSE_HEAD", {})
     roi = model_cfg.get("ROI_HEAD", None)
     dense_name = dh.get("NAME", "CenterHead")
-    check_ported("DENSE_HEAD.NAME", dense_name, _DENSE_HEADS)
+    check_known("DENSE_HEAD.NAME", dense_name, _DENSE_HEADS)
     # BACKBONE_3D is optional: a PointPillars config has none
     b3d_name = b3d.get("NAME", "VoxelResBackBone8x") if b3d is not None else None
-    check_ported("BACKBONE_3D.NAME", b3d_name, _BACKBONES_3D)
+    check_known("BACKBONE_3D.NAME", b3d_name, _BACKBONES_3D)
     b3d = b3d or {}
     roi_name = roi.get("NAME", "VoxelRCNNProtoHead") if roi else "VoxelRCNNProtoHead"
-    check_ported("ROI_HEAD.NAME", roi_name, _ROI_HEADS)
+    check_known("ROI_HEAD.NAME", roi_name, _ROI_HEADS)
     dense_post = dh.get("POST_PROCESSING", {})
     default_caps = (max(max_voxels // 2, 1024),) + tuple(
         max(max_voxels // d, 512) for d in (4, 8, 8))
@@ -490,4 +608,6 @@ def build_network(model_cfg, num_class: int, data_cfg) -> VoxelRCNN:
             bev_upsample_strides=tuple(b2d.get("UPSAMPLE_STRIDES", (1, 2))),
             bev_num_upsample_filters=tuple(b2d.get("NUM_UPSAMPLE_FILTERS", (256, 256))),
         )
-    return VoxelRCNN(**kwargs)
+    cls = _DETECTORS[name]
+    known = set(inspect.signature(cls.__init__).parameters)
+    return cls(**{k: v for k, v in kwargs.items() if k in known})

@@ -1,5 +1,11 @@
-"""RoI grid pooling primitives: grid points, voxel query, group-and-pool
-(port of cpd_tpu/ops/pool.py)."""
+"""Pooling primitives: RoI grid points, voxel queries, group-and-pool, ball
+query, farthest point sampling and 3-NN interpolation (port of
+cpd_tpu/ops/pool.py).
+
+The RoI head reads ``voxel_query_multi`` (first hits in tap order); the PFE
+reads ``voxel_query`` (the nearest voxels) and ``farthest_point_sample``,
+which runs kernel F1 on the card (``ops/fps.py``). ``ball_query`` and
+``three_nn_interpolate`` are plain functions that no path calls."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -7,8 +13,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from . import fps
 from .geometry import rotate_points_along_z
-from .sparse import GridSpec, lookup
+from .sparse import INVALID_KEY, GridSpec, lookup
 
 
 def roi_grid_points(rois, grid_size: int):
@@ -41,6 +48,74 @@ def _taps_for_radius_list(query_range: Tuple[int, int, int], voxel_size_eff,
                     offs.append((dz, dy, dx))
     offs.sort(key=lambda o: ((o[0] * vsz) ** 2 + (o[1] * vsy) ** 2 + (o[2] * vsx) ** 2, o))
     return offs[:max_taps]
+
+
+def _window_offsets(query_range: Tuple[int, int, int], max_taps: int = 135):
+    """(dz, dy, dx) offsets of the (2R+1)^3 window ordered by distance from
+    the centre (ties lexicographic), truncated to the ``max_taps`` closest."""
+    rz, ry, rx = query_range
+    offs = [(dz, dy, dx) for dz in range(-rz, rz + 1) for dy in range(-ry, ry + 1)
+            for dx in range(-rx, rx + 1)]
+    offs.sort(key=lambda o: (o[0] ** 2 + o[1] ** 2 + o[2] ** 2, o))
+    return offs[:max_taps]
+
+
+def _top_k(score, k: int):
+    """``jax.lax.top_k`` along the last axis: the ``k`` largest, ties to the
+    lower index (a stable sort; ``torch.topk`` promises no tie order)."""
+    top, sel = torch.sort(score, dim=-1, descending=True, stable=True)
+    return top[..., :k], sel[..., :k]
+
+
+def voxel_query(query_xyz, voxel_keys, grid: GridSpec, voxel_size, point_cloud_range,
+                downsample: int, query_range: Tuple[int, int, int], radius: float,
+                nsample: int):
+    """For each query point the ``nsample`` nearest occupied voxels (by
+    centre distance, ties to the lower tap) within ``radius`` m inside the
+    (2R+1)^3 window of its own cell. query_xyz (Q, 3); voxel_keys (V,)
+    sorted, INVALID_KEY padded.
+
+    Returns (idx (Q, nsample) int32, valid (Q, nsample) bool, centers (Q,
+    nsample, 3)). As in the JAX package, an unfilled slot holds the tap that
+    ``top_k`` put there, and a tap that found no voxel the clamped
+    insertion point of its key."""
+    dev = query_xyz.device
+    vs = torch.tensor(voxel_size, dtype=torch.float32, device=dev) * downsample
+    pcr = torch.tensor(point_cloud_range[:3], dtype=torch.float32, device=dev)
+    qc = torch.floor((query_xyz - pcr) / vs).to(torch.int64)  # (Q, 3) xyz
+    offs = torch.tensor(_window_offsets(query_range), dtype=torch.int64, device=dev)
+    nc = qc.flip(-1)[:, None, :] + offs[None]  # (Q, W, 3) zyx
+    in_bounds = ((nc[..., 2] >= 0) & (nc[..., 2] < grid.nx) & (nc[..., 1] >= 0)
+                 & (nc[..., 1] < grid.ny) & (nc[..., 0] >= 0) & (nc[..., 0] < grid.nz))
+    nkeys = torch.where(in_bounds, (nc[..., 0] * grid.ny + nc[..., 1]) * grid.nx + nc[..., 2],
+                        INVALID_KEY)
+    keys64 = voxel_keys.long()
+    idx = torch.clamp(torch.searchsorted(keys64, nkeys.reshape(-1)), 0, len(keys64) - 1)
+    found = ((keys64[idx] == nkeys.reshape(-1)) & (nkeys.reshape(-1) != INVALID_KEY))
+    idx, found = idx.reshape(nkeys.shape), found.reshape(nkeys.shape)
+    centers = (nc.flip(-1).to(torch.float32) + 0.5) * vs + pcr  # (Q, W, 3) xyz
+    dist = fps.norm3(centers - query_xyz[:, None, :])
+    score = torch.where(found & (dist <= radius), -dist, float("-inf"))
+    top, sel = _top_k(score, nsample)
+    sel_centers = torch.gather(centers, 1, sel[..., None].expand(-1, -1, 3))
+    return (torch.gather(idx, 1, sel).to(torch.int32), torch.isfinite(top), sel_centers)
+
+
+def voxel_query_fast(query_xyz, voxel_keys, grid: GridSpec, voxel_size, point_cloud_range,
+                     downsample: int, query_range: Tuple[int, int, int], radius: float,
+                     nsample: int):
+    """JAX's single-radius query with its default ``select="nearest"``: its
+    tap set keeps every tap of the window that can hold a voxel within the
+    radius, so it is ``voxel_query`` where the query's own cell lies in the
+    grid, and finds nothing where it does not."""
+    idx, valid, centers = voxel_query(query_xyz, voxel_keys, grid, voxel_size, point_cloud_range,
+                                      downsample, query_range, radius, nsample)
+    vs = torch.tensor(voxel_size, dtype=torch.float32, device=query_xyz.device) * downsample
+    pcr = torch.tensor(point_cloud_range[:3], dtype=torch.float32, device=query_xyz.device)
+    qc = torch.floor((query_xyz - pcr) / vs)
+    size = torch.tensor((grid.nx, grid.ny, grid.nz), dtype=torch.float32, device=qc.device)
+    in_grid = ((qc >= 0) & (qc < size)).all(dim=-1)
+    return idx, valid & in_grid[:, None], centers
 
 
 def voxel_query_multi(query_xyz, voxel_keys, grid: GridSpec, voxel_size, point_cloud_range,
@@ -121,3 +196,31 @@ def group_and_pool(features, idx, valid, rel_pos, mlp_fn):
     h = torch.where(valid[..., None], h, -1e9)
     pooled = h.amax(dim=1)
     return torch.where(valid.any(dim=1)[:, None], pooled, 0.0)
+
+
+def ball_query(query_xyz, points_xyz, points_valid, radius: float, nsample: int):
+    """Dense ball query: for each of (Q, 3) queries the ``nsample`` nearest
+    valid points of (N, 3+) ``points_xyz`` within ``radius`` (ties to the
+    lower index). Returns (idx (Q, nsample) int32, valid (Q, nsample))."""
+    d = fps.norm3(query_xyz[:, None, :] - points_xyz[None, :, :3])
+    ok = (d <= radius) & points_valid[None, :]
+    top, sel = _top_k(torch.where(ok, -d, float("-inf")), nsample)
+    return sel.to(torch.int32), torch.isfinite(top)
+
+
+def farthest_point_sample(points, valid, num_samples: int):
+    """Farthest point sampling of one cloud: (N, 3) points, (N,) bool valid
+    -> (num_samples,) int32 indices (kernel F1 on the card, ``ops/fps.py``)."""
+    return fps.farthest_point_sample(points[None], valid[None], num_samples)[0]
+
+
+def three_nn_interpolate(query_xyz, support_xyz, support_valid, support_feats):
+    """Inverse-distance interpolation from the 3 nearest valid support
+    points: (Q, 3) queries, (N, 3) support with (N,) valid and (N, C)
+    features -> (Q, C)."""
+    d = fps.norm3(query_xyz[:, None, :] - support_xyz[None, :, :])
+    d = torch.where(support_valid[None, :], d, float("inf"))
+    nd, ni = _top_k(-d, 3)
+    w = torch.where(torch.isfinite(nd), 1.0 / torch.clamp(-nd, min=1e-8), 0.0)
+    w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-8)
+    return torch.einsum("qk,qkc->qc", w, support_feats[ni])

@@ -85,8 +85,12 @@ def onecycle_momentum_schedule(total_steps: int, moms=(0.95, 0.85), pct_start: f
 
 class ClippedOptimizer(torch.optim.Optimizer):
     """Gradients clipped to a global norm, then the update rule of a subclass
-    (``_update``), as optax's ``chain(clip_by_global_norm(clip), inner)``.
-    ``step`` returns the gradient norm before clipping; a non-finite norm
+    (``_update``), as optax's ``chain(clip_by_global_norm(clip), inner)``. A
+    parameter without a gradient (``.grad`` None: no loss term reads it)
+    takes a zero gradient in the update, as JAX's gradient of it is zero: its
+    moments decay and AdamW's weight decay moves it. ``step`` returns the
+    gradient norm before clipping (over the parameters that have a
+    gradient); a non-finite norm
     leaves parameters, optimizer state and update count as they were (the
     skipped update) and zeroes the gradients. ``state_dict`` carries the
     update count, which the schedules read."""
@@ -128,9 +132,10 @@ class ClippedOptimizer(torch.optim.Optimizer):
         scale = torch.where(gnorm < self.grad_norm_clip, torch.ones_like(gnorm),
                             self.grad_norm_clip / gnorm)
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
+            params = group["params"]
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
             if params:
-                self._update(group, params, torch._foreach_mul([p.grad for p in params], scale))
+                self._update(group, params, torch._foreach_mul(grads, scale))
         return gnorm
 
     def _update(self, group, params, grads):
@@ -271,9 +276,9 @@ def all_reduce_gradients(params) -> int:
     """Sum every parameter's gradient over the ranks with one all-reduce of
     one flat f32 bucket: each gradient (zeros where this rank has None) and,
     behind them, a 1 for each parameter that has one. A parameter that no
-    rank gave a gradient keeps None (the optimizer skips it, as on one
-    device). Returns the bucket's bytes; 0 at world size 1, where nothing
-    runs."""
+    rank gave a gradient keeps None (the optimizer updates it with a zero
+    gradient, as on one device). Returns the bucket's bytes; 0 at world size
+    1, where nothing runs."""
     if comm.get_world_size() == 1:
         return 0
     params = list(params)

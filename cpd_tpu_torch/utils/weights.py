@@ -4,8 +4,13 @@
 tree (numpy leaves) to this package's state dict. Module names follow the
 flax tree, with flax's auto-names renamed (``SubMConvBN_0/1`` -> ``conv1/2``,
 ``MaskedBatchNorm_0``/``BatchNorm2d_0`` -> ``bn``, ``Conv_0`` -> ``conv``) and
-the GridPoolBranch MLP layers (``Dense_0..7``, flax's creation order) mapped
-to ``mlp_{scale}_{group}.{0,2}``; the anchor head V2's branches keep their
+the RoI head's GridPoolBranch MLP layers (``Dense_0..7``, flax's creation
+order) mapped to ``mlp_{scale}_{group}.{0,2}``. The registry modules map by
+their own paths: the PFE's MLP layers, which flax binds directly under
+``pfe`` (``Dense_0..3``), to ``mlp_{scale}.{0,2}``; the temporal cells'
+``ConvGRUCell_0`` / ``ConvLSTMCell_0`` to ``cell`` with ``Conv_0`` / ``Conv_1``
+-> ``gates`` / ``cand``, and TemporalConcatenation's ``Conv_0`` to ``fuse``;
+the wrap head's ``conf_conv`` keeps its name. The anchor head V2's branches keep their
 names with ``Conv_0`` / ``BatchNorm2d_0`` / ``Conv_1`` -> ``conv`` / ``bn`` /
 ``out``, and PillarVFE's ``MaskedBatchNorm_{i}`` beside ``pfn{i}`` becomes
 ``bn{i}``. Leaves change layout:
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from ..models.norm import _RunningNorm
+from ..models.pfe import SCALE_SPECS as PFE_SCALE_SPECS
 from ..models.roi_head import SCALE_SPECS
 
 _SEGMENTS = {"SubMConvBN_0": "conv1", "SubMConvBN_1": "conv2", "MaskedBatchNorm_0": "bn",
@@ -44,6 +50,25 @@ _LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
            "var": "running_var"}
 # flax creation order of GridPoolBranch's MLP Dense layers
 _MLP_GROUPS = [(name, gi) for name, _, *groups in SCALE_SPECS for gi in range(len(groups))]
+_TEMPORAL_SEGMENTS = {"ConvGRUCell_0": "cell", "ConvLSTMCell_0": "cell"}
+_CELL_CONVS = {"Conv_0": "gates", "Conv_1": "cand"}
+
+
+def _own_path(mods):
+    """The port's module path of a leaf under ``pfe`` or ``temporal``, or
+    None for every other module."""
+    if mods[0] == "pfe" and len(mods) == 2 and re.fullmatch(r"Dense_\d+", mods[1]):
+        i = int(mods[1].split("_")[1])
+        return ["pfe", f"mlp_{PFE_SCALE_SPECS[i // 2][0]}", str(2 * (i % 2))]
+    if mods[0] == "temporal":
+        if len(mods) == 3 and mods[1] in _TEMPORAL_SEGMENTS and mods[2] in _CELL_CONVS:
+            return ["temporal", "cell", _CELL_CONVS[mods[2]]]
+        if mods[1:] == ["Conv_0"]:  # TemporalConcatenation's 1x1 fuse
+            return ["temporal", "fuse"]
+        if mods[1:] == ["in_proj"]:
+            return mods
+        raise KeyError(f"unmapped temporal module {'/'.join(mods)}")
+    return None
 
 
 def _flatten(tree, prefix=()):
@@ -58,13 +83,18 @@ def _key_and_layout(path, leaf):
     """One JAX leaf -> (torch key, layout): how the leaf's axes map, one of
     "same", "dense", "conv", "deconv"."""
     *mods, name = path
-    if mods and re.fullmatch(r"Dense_\d+", mods[-1]):  # GridPoolBranch MLPs
-        i = int(mods[-1].split("_")[1])
-        scale, gi = _MLP_GROUPS[i // 2]
-        mods = mods[:-1] + [f"mlp_{scale}_{gi}", str(2 * (i % 2))]
-    if mods[:1] == ["vfe"]:  # PillarVFE: pfn{i} and its MaskedBatchNorm_{i}
-        mods = [re.sub(r"^MaskedBatchNorm_(\d+)$", r"bn\1", m) for m in mods]
-    mods = [_SEGMENTS.get(m, m) for m in mods]
+    own = _own_path(mods) if mods else None
+    if own is not None:
+        mods = own
+    else:
+        if mods and re.fullmatch(r"Dense_\d+", mods[-1]) and (
+                len(mods) == 1 or mods[-2].startswith("pool_branch")):
+            i = int(mods[-1].split("_")[1])  # GridPoolBranch MLPs (or a bare GridPoolBranch)
+            scale, gi = _MLP_GROUPS[i // 2]
+            mods = mods[:-1] + [f"mlp_{scale}_{gi}", str(2 * (i % 2))]
+        if mods[:1] == ["vfe"]:  # PillarVFE: pfn{i} and its MaskedBatchNorm_{i}
+            mods = [re.sub(r"^MaskedBatchNorm_(\d+)$", r"bn\1", m) for m in mods]
+        mods = [_SEGMENTS.get(m, m) for m in mods]
     layout = "same"
     if name == "kernel":
         if leaf.ndim == 2:

@@ -51,6 +51,16 @@ PROPOSAL_KEYS = ("rois", "roi_scores", "roi_labels", "roi_valid")
 _JAX_RUNS = []  # (what, JAX model, digest of the inputs, outputs)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread, as in tests/test_torch_port_cli_train.py: beside
+    the other test workers, torch's threads wait on busy cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_once(what, jm, arrays, run):
     """``run()``'s outputs, computed once for an equal JAX model (flax
     modules compare by their fields) and the same input bytes."""

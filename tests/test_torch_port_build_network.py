@@ -10,7 +10,7 @@
   (PillarVFE, no 3D backbone, no RoI head; at +-75.52 m, where its BEV
   pyramid concatenates: at its own +-75.2 m neither package runs it, see
   tests/test_torch_port_pillars.py).
-* Every module name that is not ported raises a KeyError that names it.
+* Every registry name builds: tests/test_torch_port_registry.py.
 * With the scale overrides ``SCALE_SETS`` (range, voxel and RoI caps; no
   width changes), one f32 ``predict`` of the shipped yaml's model, same
   seeded weights, JAX under ``jax_nms_with_clip_iou`` and ``jax_f32``:
@@ -184,14 +184,6 @@ def test_ported_yaml_builds_at_full_width_with_one_to_one_keys(path):
     assert sd[key].shape == shape
 
 
-@pytest.mark.parametrize("field,name", [
-    ("backbone3d_name", "VoxelBackBone8x"), ("temporal_name", "ConvGRU"),
-    ("pfe_name", "VoxelSetAbstraction"), ("wrap_head_name", "PartWraper")])
-def test_constructor_names_the_module_it_lacks(field, name):
-    with pytest.raises(KeyError, match=f"'{name}' is not ported yet"):
-        VoxelRCNN(**{field: name})
-
-
 @pytest.mark.parametrize("kwargs,match", [
     (dict(vfe_name="PillarVFE", with_roi_head=False), "requires MAP_TO_BEV PointPillarScatter"),
     (dict(vfe_name="PillarVFE", map_to_bev_name="PointPillarScatter"), "needs a 3D backbone"),
@@ -201,13 +193,6 @@ def test_constructor_checks_the_topology_as_jax_does(kwargs, match):
         VoxelRCNN(**kwargs)
     with pytest.raises(ValueError, match=match):
         jdet.VoxelRCNN(**kwargs).init(jax.random.PRNGKey(0), {"points": jnp.zeros((1, 8, 5))})
-
-
-def test_model_name_not_ported():
-    port_cfg, _ = load_pair(SHIPPED)
-    port_cfg.MODEL.NAME = "CenterPoint"
-    with pytest.raises(KeyError, match="'CenterPoint' is not ported yet"):
-        build_network(port_cfg.MODEL, 3, port_cfg.DATA_CONFIG)
 
 
 def frames_batch(n, seed=0, n_points=4096):

@@ -51,6 +51,16 @@ SEQ = "segment-0000"
 N_FRAMES = 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread, as in tests/test_torch_port_cli_train.py: beside
+    the other test workers, torch's threads wait on busy cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _frames():
     out = []
     for i in range(N_FRAMES):

@@ -1,5 +1,5 @@
 """Tests of the port that need a CUDA card (marker ``cuda``): kernels A1, A2,
-G1-G4, R1 and R2 have no CPU or interpret mode. They skip without a card. This file
+G1-G4, R1, R2 and F1 have no CPU or interpret mode. They skip without a card. This file
 imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda
@@ -910,3 +910,50 @@ def test_norm_collectives_on_ranks_sharing_the_card(cuda, tmp_path):
     for key, v in got.items():
         scale = max(float(np.abs(ref[key]).max()), 1e-3)
         assert float(np.abs(v - ref[key]).max()) <= 1e-5 * scale, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spread", "ties", "padded", "few_valid", "none_valid",
+                                  "one_point"])
+def test_farthest_point_sample_kernel_equals_plain(cuda, case):
+    """Kernel F1 against its plain version, indices exactly equal: a batch of
+    3 clouds of 20,000 points (one point for ``one_point``), 512 samples;
+    spread points, integer points full of ties, padding, 5 valid points
+    (the first valid one repeats), none valid (all 0)."""
+    from cpd_tpu_torch.ops.fps import farthest_point_sample, farthest_point_sample_reference
+    rng = np.random.default_rng(["spread", "ties", "padded", "few_valid", "none_valid",
+                                 "one_point"].index(case))
+    n = 1 if case == "one_point" else 20_000
+    pts = rng.normal(0.0, 20.0, (3, n, 5)).astype(np.float32)
+    valid = np.ones((3, n), bool)
+    if case == "ties":
+        pts = np.round(pts / 4.0)
+    elif case == "padded":
+        valid = rng.random((3, n)) > 0.4
+    elif case == "few_valid":
+        valid[:] = False
+        valid[:, [3, 70, 71, 5000, n - 1]] = True
+    elif case == "none_valid":
+        valid[:] = False
+    p, v = torch.from_numpy(pts).to(cuda), torch.from_numpy(valid).to(cuda)
+    before = farthest_point_sample.launches
+    got = farthest_point_sample(p, v, 512)
+    again = farthest_point_sample(p, v, 512)
+    assert farthest_point_sample.launches - before == 2
+    ref = farthest_point_sample_reference(p, v, 512)
+    assert got.dtype == torch.int32 and got.shape == (3, 512)
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    if case == "none_valid":
+        assert not got.any()
+    elif case != "one_point":
+        assert bool(v.gather(1, got.long()).all())
+
+
+@pytest.mark.cuda
+def test_farthest_point_sample_kernel_rejects_wrong_operands(cuda):
+    from cpd_tpu_torch.ops.fps import farthest_point_sample
+    p = torch.zeros(1, 8, 3, device=cuda)
+    with pytest.raises(ValueError):
+        farthest_point_sample(p, torch.ones(1, 8, device=cuda), 4)  # not bool
+    with pytest.raises(ValueError):
+        farthest_point_sample(p, torch.ones(1, 8, dtype=torch.bool), 4)  # on the CPU

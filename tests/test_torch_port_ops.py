@@ -63,7 +63,7 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'yaml', 'sklearn', 'cpd_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 66, names\n"
+        "assert len(names) >= 71, names\n"
         "assert {'cpd_tpu_torch.utils.loss', 'cpd_tpu_torch.parallel.trainer',\n"
         "        'cpd_tpu_torch.ops.cuda_build', 'cpd_tpu_torch.ops.gather_probes',\n"
         "        'cpd_tpu_torch.probes.gather', 'cpd_tpu_torch.config',\n"
@@ -76,7 +76,10 @@ def test_port_imports_no_jax():
         "        'cpd_tpu_torch.unsupervised.ground', 'cpd_tpu_torch.ops.radius',\n"
         "        'cpd_tpu_torch.ops.dbscan', 'cpd_tpu_torch.native',\n"
         "        'cpd_tpu_torch.datasets.kitti', 'cpd_tpu_torch.utils.torch_import',\n"
-        "        'cpd_tpu_torch.parallel.comm', 'cpd_tpu_torch.utils.collective'} <= set(names)\n"
+        "        'cpd_tpu_torch.parallel.comm', 'cpd_tpu_torch.utils.collective',\n"
+        "        'cpd_tpu_torch.models.centerpoint', 'cpd_tpu_torch.models.temporal',\n"
+        "        'cpd_tpu_torch.models.pfe', 'cpd_tpu_torch.models.part_wraper',\n"
+        "        'cpd_tpu_torch.ops.fps'} <= set(names)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
