@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --determinism RUNS [--no-cudnn]   # phase 13 alone
     python3 chip_smoke.py --registry                        # phase 18 alone
+    python3 chip_smoke.py --ops                             # phase 19 alone
 
 Drives the port's paths at the bench configuration of the JAX package
 (bench.py: 3 classes, range +-75.2 x [-2, 4] m, voxels (0.1, 0.1, 0.15) m,
@@ -232,6 +233,14 @@ raising on failure:
     whole-predict tier, a finite ``loss_step``. Prints frames/s, step ms,
     F1's and its plain version's ms and peak memory. ``--registry`` runs the
     build and this phase alone.
+19. the toolbox modules (``ops_phase``, right after 18): RoI-aware and
+    RoI-point pooling, VectorPool, ATSS, DCN, the transformer, the NMS
+    variants, the coders, the losses, the geometry helpers, the one-sample
+    sparse conv and masked statistics, each at the CPU tests' size on the
+    card and on the CPU (floats within 1e-4 of scale, integers equal), then
+    at full size with its median ms and peak memory; no kernel of its own
+    (the sparse conv launches A1, counted), so no kernels-line entry.
+    ``--ops`` runs the build and this phase alone.
 
 The last two lines of stdout are the card line and a JSON object; the line
 before them is the kernels JSON. For each use of A1 and A2 it gives the
@@ -3692,6 +3701,393 @@ def registry_phase(dev, card):
     return entries
 
 
+# ---- phase 19: the toolbox modules -----------------------------------------
+
+OPS_ROIS = 128
+OPS_KEYPOINTS, OPS_SUPPORT, OPS_CHANNELS = 1024, 16_384, 32
+OPS_MSG_GROUPS = ({"num_local_voxel": (3, 3, 3), "post_mlps": (32,), "max_neighbor_distance": 0.8},
+                  {"num_local_voxel": (3, 3, 3), "post_mlps": (32,), "max_neighbor_distance": 1.6})
+OPS_NMS = {"NMS_THRESH": 0.7, "NMS_PRE_MAXSIZE": 4096, "NMS_POST_MAXSIZE": 500}
+OPS_GT_SLOTS = 64
+
+
+def _ops_boxes(rng, n, extra=0, spread=6.0):
+    cols = [rng.uniform(-spread, spread, (n, 2)), rng.uniform(-1, 1, (n, 1)),
+            rng.uniform(0.8, 4.0, (n, 3)), rng.uniform(-np.pi, np.pi, (n, 1)),
+            rng.normal(size=(n, extra))]
+    return np.concatenate(cols, -1).astype(np.float32)
+
+
+def _seeded_module(module, seed, dev):
+    """``module`` with every parameter drawn from numpy (the same on each
+    device), in eval mode on ``dev``."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(torch.from_numpy(rng.normal(0.0, 1.0 / math.sqrt(max(p[0].numel(), 1)),
+                                                tuple(p.shape)).astype(np.float32)))
+    return module.to(dev).eval()
+
+
+def ops_small_cases():
+    """{module: fn(dev) -> outputs} at the CPU tests' small sizes, every
+    input made from a seed with numpy, for the card-against-CPU check."""
+    from cpd_tpu_torch.models import atss, transformer, vector_pool
+    from cpd_tpu_torch.ops import box_coders, dcn, geometry, roipool
+    from cpd_tpu_torch.utils import loss as loss_utils
+
+    def t(x, dev):
+        return torch.from_numpy(np.array(x)).to(dev)
+
+    def geometry_case(dev):
+        rng = np.random.default_rng(0)
+        pts = np.concatenate([rng.uniform(-8, 8, (300, 2)), rng.uniform(-2, 2, (300, 1)),
+                              rng.normal(size=(300, 1))], -1).astype(np.float32)
+        boxes, far = t(_ops_boxes(rng, 9, 1), dev), t(_ops_boxes(rng, 40, spread=9.0), dev)
+        cut = (-6.0, -5.0, -1.0, 6.5, 5.5, 1.5)
+        coords = t(rng.integers(0, 40, (50, 3)).astype(np.int32), dev)
+        return [geometry.points_in_boxes_mask(t(pts, dev), boxes),
+                geometry.points_in_boxes_index(t(pts, dev), boxes, t(np.arange(9) % 3 != 1, dev)),
+                geometry.enlarge_box3d(boxes, (0.2, 0.3, 0.4)),
+                geometry.get_voxel_centers(coords, 2, (0.4, 0.4, 0.15), BENCH["point_cloud_range"]),
+                geometry.mask_points_outside_range(t(pts, dev), cut),
+                geometry.mask_boxes_outside_range(far, cut, 2)]
+
+    def coders_case(dev):
+        rng = np.random.default_rng(1)
+        boxes, anchors = t(_ops_boxes(rng, 20, 2), dev), t(_ops_boxes(rng, 20, 2), dev)
+        codes = t(rng.normal(size=(20, 10)).astype(np.float32) * 0.5, dev)
+        pts = t(rng.normal(size=(20, 3)).astype(np.float32), dev)
+        cls = t(rng.integers(1, 4, 20), dev)
+        point = box_coders.PointResidualCoder(mean_size=[[3.9, 1.6, 1.56], [0.8, 0.6, 1.73],
+                                                         [1.76, 0.6, 1.73]])
+        out = []
+        for coder in (box_coders.ResidualCoder(encode_angle_by_sincos=True),
+                      box_coders.ResidualCoderV2(encode_angle_by_sincos=True)):
+            out += [coder.encode(boxes, anchors), coder.decode(codes, anchors)]
+        return out + [point.encode(boxes, pts, cls), point.decode(codes[:, :8], pts, cls),
+                      box_coders.PreviousResidualDecoder.decode(codes[:, :7], boxes[:, :7])]
+
+    def nms_case(dev):
+        rng = np.random.default_rng(5)
+        boxes = _ops_boxes(rng, 60, spread=5.0)
+        boxes[30:, :3] = boxes[:30, :3] + rng.normal(0, 0.3, (30, 3))
+        rng.random(60)
+        cls = t(rng.random((60, 3)).astype(np.float32), dev)
+        cfg = {"NMS_THRESH": 0.3, "NMS_PRE_MAXSIZE": 50, "NMS_POST_MAXSIZE": 24}
+        b = t(boxes, dev)
+        return [*nms.nms_normal_bev(b, cls[:, 0], 0.1, 48, 20),
+                *nms.multi_classes_nms(cls, b, cfg, 0.2),
+                *nms.class_agnostic_nms(cls[:, 1], b, dict(cfg, USE_FAST_NMS=True), 0.2)]
+
+    def losses_case(dev):
+        rng = np.random.default_rng(7)
+        gt = _ops_boxes(rng, 12)
+        pred = gt + np.concatenate([rng.normal(0, 0.3, (12, 3)), rng.normal(0, 0.2, (12, 3)),
+                                    rng.normal(0, 0.3, (12, 1))], -1).astype(np.float32)
+        pred[:, 3:6] = np.abs(pred[:, 3:6]) + 0.3
+        p = t(pred, dev).requires_grad_()
+        loss = loss_utils.odiou_3d(p, t(gt, dev))
+        loss.backward()
+        l1 = loss_utils.weighted_l1_loss(t(pred, dev), t(gt, dev), t(np.ones(12, np.float32), dev),
+                                         [1.0] * 6 + [0.5])
+        return [loss.detach(), p.grad, l1]
+
+    def roipool_case(dev):
+        rng = np.random.default_rng(8)
+        boxes = _ops_boxes(rng, 8, spread=4.0)
+        boxes[-1, 3:6] = 0.3
+        pts = np.concatenate([rng.uniform(-6, 6, (2000, 2)), rng.uniform(-2, 2, (2000, 1))],
+                             -1).astype(np.float32)
+        feats = rng.normal(size=(2000, 4)).astype(np.float32)
+        args = (t(pts, dev), t(feats, dev), t(boxes, dev))
+        kw = dict(points_valid=t(rng.random(2000) < 0.9, dev),
+                  boxes_valid=t(np.arange(8) != 2, dev))
+        return [roipool.roiaware_pool3d(*args, 4, "max", **kw),
+                roipool.roiaware_pool3d(*args, 4, "avg", **kw),
+                *roipool.roipoint_pool3d(*args, 16, **kw)]
+
+    def sparse_case(dev):
+        rng = np.random.default_rng(10)
+        grid = sparse.GridSpec(6, 5, 8)
+        keys = np.full(180, sparse.INVALID_KEY, np.int32)
+        keys[:150] = np.sort(rng.choice(grid.num_cells, 150, replace=False))
+        book = sparse.build_subm_rulebook(t(keys, dev), grid)
+        feats = t(rng.normal(size=(180, 8)).astype(np.float32), dev)
+        w = t(rng.normal(size=(27, 8, 16)).astype(np.float32) * 0.2, dev)
+        x = t(rng.normal(1.0, 2.0, (2, 40, 6)).astype(np.float32), dev)
+        bias = t(rng.normal(size=16).astype(np.float32), dev)
+        return [sparse.sparse_conv_apply(feats, book, w, bias),
+                *sparse.masked_batch_stats(x, t(rng.random((2, 40)) < 0.6, dev))]
+
+    def atss_case(dev):
+        rng = np.random.default_rng(1)
+        xs = np.linspace(-7.5, 7.5, 12)
+        gx, gy = np.meshgrid(xs, xs, indexing="ij")
+        anchors = []
+        for size in ((3.9, 1.6, 1.56), (0.8, 0.6, 1.73)):
+            for rot in (0.0, np.pi / 2):
+                a = np.zeros((144, 7), np.float32)
+                a[:, 0], a[:, 1], a[:, 2] = gx.ravel(), gy.ravel(), -1.0
+                a[:, 3:6], a[:, 6] = size, rot
+                anchors.append(a)
+        gt = np.zeros((10, 8), np.float32)
+        gt[:, :2] = rng.uniform(-6, 6, (10, 2))
+        gt[:, 2] = rng.uniform(-1.5, -0.5, 10)
+        gt[:, 3:6] = rng.uniform([2.0, 1.2, 1.0], [5.0, 2.5, 2.0], (10, 3))
+        gt[:, 6] = rng.uniform(-np.pi, np.pi, 10)
+        gt[:, 7] = rng.integers(1, 4, 10)
+        out = atss.atss_assign(t(np.concatenate(anchors), dev), t(gt, dev),
+                               t(np.arange(10) < 7, dev))
+        return [out["labels"], out["max_iou"]]
+
+    def dcn_case(dev):
+        rng = np.random.default_rng(2)
+        x = t(rng.normal(size=(2, 9, 7, 5)).astype(np.float32), dev)
+        out = []
+        for modulated in (True, False):
+            layer = _seeded_module(dcn.DeformConv2d(5, 6, modulated=modulated), 2, dev)
+            with torch.no_grad():
+                out.append(layer(x))
+        return out
+
+    def transformer_case(dev):
+        rng = np.random.default_rng(5)
+        tokens = t(rng.normal(size=(2, 9, 12)).astype(np.float32), dev)
+        mask = t((np.arange(9)[None] < np.array([[9], [6]]))[:, None, None, :], dev)
+        enc = _seeded_module(transformer.TransformerEncoder(16, 2, 4, in_channels=12), 5, dev)
+        dec = _seeded_module(transformer.TransformerDecoder(16, 1, 4, num_queries=6), 6, dev)
+        with torch.no_grad():
+            memory = enc(tokens, mask)
+            return [memory, dec(memory, mask)]
+
+    def vector_pool_case(dev):
+        rng = np.random.default_rng(10)
+        sx = rng.uniform(-5, 5, (300, 3)).astype(np.float32)
+        sv = rng.random(300) < 0.9
+        sf = rng.normal(size=(300, 6)).astype(np.float32)
+        cx = rng.uniform(-4, 4, (7, 3)).astype(np.float32)
+        cv = np.arange(7) < 6
+        groups = ({"num_local_voxel": (2, 2, 2), "post_mlps": (16,), "max_neighbor_distance": 0.8},
+                  {"num_local_voxel": (3, 3, 3), "post_mlps": (16,), "max_neighbor_distance": 1.6})
+        msg = vector_pool.VectorPoolAggregationMSG(6, groups, num_reduced_channels=3,
+                                                   num_channels_of_local_aggregation=4,
+                                                   msg_post_mlps=(24, 12))
+        msg = _seeded_module(msg, 10, dev).train()
+        out = msg(*(t(a, dev)[None] for a in (sx, sv, sf, cx, cv)))
+        stats = [b for k, b in msg.named_buffers() if k.endswith(("running_mean", "running_var"))]
+        return [out.detach(), *stats]
+
+    return {"geometry": geometry_case, "box_coders": coders_case, "nms": nms_case,
+            "losses (weighted_l1_loss, odiou_3d)": losses_case, "roipool": roipool_case,
+            "sparse_conv_apply, masked_batch_stats": sparse_case, "atss_assign": atss_case,
+            "DeformConv2d": dcn_case, "transformer": transformer_case,
+            "VectorPoolAggregationMSG": vector_pool_case}
+
+
+def ops_card_against_cpu():
+    """Phase 19 (a): each module at the CPU tests' small sizes on the card
+    and on the CPU (TF32 off): floats within 1e-4 of the CPU's scale,
+    integers, labels, masks and indices equal."""
+    for name, case in ops_small_cases().items():
+        card, cpu = case(torch.device("cuda")), case(torch.device("cpu"))
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(card, cpu, strict=True)):
+            a = a.cpu()
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{name} output {i}: card {a.dtype}{tuple(a.shape)}, "
+                                     f"CPU {b.dtype}{tuple(b.shape)}")
+            if not a.is_floating_point():
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} output {i}: card and CPU differ at "
+                                         f"{int((a != b).sum())} of {a.numel()} entries")
+                continue
+            scale = max(float(b.abs().max()), 1e-6) if b.numel() else 1.0
+            err = float((a - b).abs().max()) if b.numel() else 0.0
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"{name} output {i}: card against CPU {err} at scale {scale}")
+            worst = max(worst, err / scale)
+        print(f"ops (a) {name}: card = CPU at the CPU tests' size ({len(cpu)} outputs, "
+              f"worst float error {worst:.2e} of scale)", flush=True)
+
+
+def ops_timed(name, fn, card, reps=3):
+    """One module at its full size: the median device ms of ``reps`` calls
+    after a warm-up, and the peak memory of those calls."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"ops (b) {name}: {statistics.median(times):.3f} ms (median of {reps} after a "
+          f"warm-up), peak {peak:.2f} GiB ({card})", flush=True)
+    return out
+
+
+def ops_phase(dev, card):
+    """Phase 19: every toolbox module of the port but the plotter on the
+    card. (a) ``ops_card_against_cpu``; (b) each at its full size, timed:
+    RoI-aware pooling (out_size 12, max and avg) and RoI-point pooling (512
+    points) of 128 RoIs on the 200k-point bench frame with its 5 columns as
+    features, VectorPoolAggregationMSG (1,024 keypoints over 16,384 support
+    points of 32 channels, two 3 x 3 x 3 groups of radius 0.8 and 1.6 m, in
+    training mode), DeformConv2d (batch 2, 188 x 188, 128 -> 128), the
+    transformer encoder (dim 256, depth 3, 4 heads, 4,096 tokens, batch 2)
+    and decoder (100 queries on that memory), ``atss_assign`` on the DBSCAN
+    yaml's anchor grid with 64 gt slots, the class-agnostic and per-class NMS
+    at pre_max_size 4,096, and the geometry, coders, losses, one-sample
+    sparse conv (kernel A1), masked statistics and model helpers at the
+    frame's scale. Raises on any failure."""
+    from cpd_tpu_torch.models import (atss, load_data_to_device, model_fn_decorator,
+                                      transformer, vector_pool)
+    from cpd_tpu_torch.ops import box_coders, dcn, geometry, roipool
+    from cpd_tpu_torch.utils import loss as loss_utils
+
+    t0 = time.perf_counter()
+    ops_card_against_cpu()
+    rng = np.random.default_rng(0)
+    pts, valid = make_lidar_frame(np.random.default_rng(0), N_POINTS)
+    frame = load_data_to_device({"points": pts, "points_valid": valid}, dev)
+    points, pv = frame["points"], frame["points_valid"]
+    centres = pts[valid][rng.choice(int(valid.sum()), OPS_ROIS, replace=False), :3]
+    rois = np.concatenate([centres, rng.uniform([3.5, 1.6, 1.4], [5.0, 2.2, 2.0], (OPS_ROIS, 3)),
+                           rng.uniform(-np.pi, np.pi, (OPS_ROIS, 1))], -1).astype(np.float32)
+    rois = torch.from_numpy(rois).to(dev)
+    for method in ("max", "avg"):
+        out = ops_timed(f"roiaware_pool3d {method}, out_size 12, {OPS_ROIS} RoIs, "
+                        f"{N_POINTS} points x 5 columns",
+                        lambda: roipool.roiaware_pool3d(points, points, rois, 12, method,
+                                                        points_valid=pv), card)
+        if not (torch.isfinite(out).all() and (out != 0).any()):
+            raise AssertionError(f"roiaware_pool3d {method}: not finite or all zero")
+    pooled, pooled_valid, empty = ops_timed(
+        f"roipoint_pool3d, 512 points, {OPS_ROIS} RoIs",
+        lambda: roipool.roipoint_pool3d(points, points, rois, 512, points_valid=pv), card)
+    if empty.all() or not pooled_valid.any():
+        raise AssertionError("roipoint_pool3d: every RoI empty")
+
+    sel = np.nonzero(valid)[0][rng.choice(int(valid.sum()), OPS_SUPPORT, replace=False)]
+    support = points[torch.from_numpy(sel).to(dev), :3][None]
+    feats = torch.from_numpy(rng.normal(size=(1, OPS_SUPPORT, OPS_CHANNELS)).astype(
+        np.float32)).to(dev)
+    keys = support[:, torch.from_numpy(rng.choice(OPS_SUPPORT, OPS_KEYPOINTS, replace=False)).to(
+        dev)]
+    ones = torch.ones((1, OPS_SUPPORT), dtype=torch.bool, device=dev)
+    kv = torch.ones((1, OPS_KEYPOINTS), dtype=torch.bool, device=dev)
+    msg = vector_pool.VectorPoolAggregationMSG(OPS_CHANNELS, OPS_MSG_GROUPS,
+                                               num_reduced_channels=8, msg_post_mlps=(64,))
+    msg = _seeded_module(msg, 0, dev).train()
+    with torch.no_grad():
+        out = ops_timed(f"VectorPoolAggregationMSG, {OPS_KEYPOINTS} keypoints over "
+                        f"{OPS_SUPPORT} points x {OPS_CHANNELS}",
+                        lambda: msg(support, ones, feats, keys, kv), card)
+    if not (torch.isfinite(out).all() and out.abs().sum() > 0):
+        raise AssertionError("VectorPoolAggregationMSG: not finite or all zero")
+
+    layer = _seeded_module(dcn.DeformConv2d(128, 128), 1, dev)
+    x = torch.from_numpy(rng.normal(size=(2, 188, 188, 128)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        out = ops_timed("DeformConv2d, batch 2, 188 x 188, 128 -> 128", lambda: layer(x), card)
+    if out.shape != (2, 188, 188, 128) or not torch.isfinite(out).all():
+        raise AssertionError(f"DeformConv2d: {tuple(out.shape)}, "
+                             f"finite {bool(torch.isfinite(out).all())}")
+    del x, out
+
+    enc = _seeded_module(transformer.TransformerEncoder(256, 3, 4), 2, dev)
+    dec = _seeded_module(transformer.TransformerDecoder(256, 3, 4, num_queries=100), 3, dev)
+    tokens = torch.from_numpy(rng.normal(size=(2, 4096, 256)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        memory = ops_timed("TransformerEncoder, dim 256, depth 3, 4 heads, 4096 tokens, batch 2",
+                           lambda: enc(tokens), card)
+        queries = ops_timed("TransformerDecoder, 100 queries on that memory",
+                            lambda: dec(memory), card)
+    if queries.shape != (2, 100, 256) or not torch.isfinite(queries).all():
+        raise AssertionError("transformer: bad decoder output")
+
+    _, dbscan = yaml_model(DBSCAN_YAML, [], 0, dev)
+    grid = dbscan.dense_head.anchors((188, 188), dev)[0].reshape(-1, 7)
+    del dbscan
+    gt = np.zeros((OPS_GT_SLOTS, 8), np.float32)
+    gt[:, :7] = _ops_boxes(rng, OPS_GT_SLOTS, spread=70.0)
+    gt[:, 7] = rng.integers(1, 4, OPS_GT_SLOTS)
+    gt_valid = torch.from_numpy(np.arange(OPS_GT_SLOTS) < 48).to(dev)
+    gt = torch.from_numpy(gt).to(dev)
+    assigned = ops_timed(f"atss_assign, the DBSCAN yaml's {grid.shape[0]} anchors, "
+                         f"{OPS_GT_SLOTS} gt slots", lambda: atss.atss_assign(grid, gt, gt_valid),
+                         card)
+    if not (assigned["labels"] >= 0).any():
+        raise AssertionError("atss_assign: no anchor assigned")
+
+    nms_boxes = torch.from_numpy(_ops_boxes(rng, 8192, spread=70.0)).to(dev)
+    nms_scores = torch.from_numpy(rng.random((8192, 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        kept = ops_timed("class_agnostic_nms, 8192 boxes, pre_max_size 4096",
+                         lambda: nms.class_agnostic_nms(nms_scores[:, 0], nms_boxes, OPS_NMS, 0.1),
+                         card)
+        multi = ops_timed("multi_classes_nms, 3 classes, pre_max_size 4096",
+                          lambda: nms.multi_classes_nms(nms_scores, nms_boxes, OPS_NMS, 0.1), card)
+    if not (kept[1].any() and multi[1].any(dim=1).all()):
+        raise AssertionError("NMS: nothing kept")
+
+    ops_timed(f"points_in_boxes_mask, {N_POINTS} points x {OPS_GT_SLOTS} boxes",
+              lambda: geometry.points_in_boxes_index(points, gt, gt_valid), card)
+    anchors = grid[:, :7]
+    coder = box_coders.ResidualCoder(encode_angle_by_sincos=True)
+    boxes = anchors + 0.1
+    ops_timed(f"ResidualCoder (sincos) encode + decode, {anchors.shape[0]} anchors",
+              lambda: coder.decode(coder.encode(boxes, anchors), anchors), card)
+    pred = (gt[:, :7] + 0.05).repeat(64, 1).requires_grad_()
+    target = gt[:, :7].repeat(64, 1)
+
+    def odiou_step():
+        pred.grad = None
+        loss = loss_utils.odiou_3d(pred, target)
+        loss.backward()
+        return loss
+    loss = ops_timed(f"odiou_3d loss and gradient, {pred.shape[0]} pairs", odiou_step, card)
+    if not (torch.isfinite(loss) and torch.isfinite(pred.grad).all()):
+        raise AssertionError("odiou_3d: not finite")
+
+    a1_before = a1.gather_gemm.launches
+    vox = torch.from_numpy(np.sort(rng.choice(1504 * 1504 * 41, 60_000, replace=False)).astype(
+        np.int32)).to(dev)
+    book = sparse.build_subm_rulebook(vox, sparse.GridSpec(1504, 1504, 41))
+    vfeat = torch.from_numpy(rng.normal(size=(60_000, 16)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.normal(0, 0.1, (27, 16, 16)).astype(np.float32)).to(dev)
+    conv = ops_timed("sparse_conv_apply (kernel A1), 60000 voxels, 16 -> 16",
+                     lambda: sparse.sparse_conv_apply(vfeat, book, w), card)
+    if a1.gather_gemm.launches - a1_before != 4:
+        raise AssertionError(f"sparse_conv_apply launched A1 {a1.gather_gemm.launches - a1_before} "
+                             "times, not 4")
+    ops_timed("masked_batch_stats, 60000 x 16",
+              lambda: sparse.masked_batch_stats(conv, book.out_valid), card)
+
+    small = VoxelRCNN(**SMALL)
+    small.load_state_dict(seeded_state_dict(small, 0), strict=True)
+    small = place(small, dev)
+    fn = model_fn_decorator(small)
+    state = {k: v.clone() for k, v in small.state_dict().items()}
+    batch = make_tiny_train_batch(b=1, with_proto=True)
+    first, tb, disp = fn(batch)
+    small.load_state_dict(state)
+    again, _, _ = fn(batch)
+    first, again = float(first.detach()), float(again.detach())
+    if not (math.isfinite(first) and first == again and "total_loss" in disp):
+        raise AssertionError(f"model_fn_decorator: {first} then {again}")
+    if not native.available():
+        raise AssertionError("native.available() is False after the build")
+    print(f"ops (b) model_fn_decorator: loss {first:.4f} twice on the SMALL model; "
+          f"native.available(): True", flush=True)
+    print(f"ops phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     parser.add_argument("--determinism", type=int, metavar="RUNS",
@@ -3701,6 +4097,8 @@ def main():
                         help="with --determinism: the scope turns cuDNN off instead")
     parser.add_argument("--registry", action="store_true",
                         help="run only phase 18 (after the build) and print its kernels line")
+    parser.add_argument("--ops", action="store_true",
+                        help="run only phase 19, the toolbox modules (after the build)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -3725,6 +4123,10 @@ def main():
         return
     if args.registry:
         print(json.dumps({"kernels": registry_phase(dev, card)}))
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.ops:
+        ops_phase(dev, card)
         print(f"total {time.perf_counter() - t_start:.1f} s")
         return
     kernel_resource_lines()
@@ -3776,6 +4178,8 @@ def main():
     kernels += data_parallel_phase(dev, card)
     torch.cuda.empty_cache()
     kernels += registry_phase(dev, card)
+    torch.cuda.empty_cache()
+    ops_phase(dev, card)
     torch.cuda.empty_cache()
 
     kernels += training_phase(dev)

@@ -90,6 +90,16 @@ def load():
     return _lib
 
 
+def available() -> bool:
+    """Whether the library builds (where it is missing) and loads here; the
+    entry points raise where it does not."""
+    try:
+        load()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def _f32(a):
     return np.ascontiguousarray(a, dtype=np.float32)
 

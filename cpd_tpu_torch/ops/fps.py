@@ -14,7 +14,7 @@ Both versions reproduce the JAX loop exactly: a padded point is never
 chosen while a valid one exists, ties go to the lower index, with fewer
 valid points than samples the first valid point repeats, with none every
 index is 0, and the distance is ``jnp.linalg.norm``'s on the CPU:
-``sqrt(fma(dz, dz, fma(dy, dy, dx*dx)))`` in f32 (``norm3``; XLA contracts
+``sqrt(fma(dz, dz, fma(dy, dy, dx*dx)))`` in f32 (``fused_norm``; XLA contracts
 the sum of squares into fused multiply-adds).
 
 A CUDA tensor launches the kernel (``farthest_point_sample.launches``
@@ -45,21 +45,24 @@ def _check(points, valid, num_samples):
         raise ValueError("too many points for the kernel's 32-bit index")
 
 
-def norm3(d):
-    """|d| over the last axis of 3 as ``jnp.linalg.norm`` computes it on the
-    CPU: sqrt(fma(z, z, fma(y, y, x*x))) in f32, each fused multiply-add
+def fused_norm(d):
+    """|d| over the last axis as ``jnp.linalg.norm`` computes it on the CPU
+    under ``jit``: sqrt(fma(d2, d2, fma(d1, d1, d0*d0))) in f32 (for 3
+    components; fewer or more chain the same way), each fused multiply-add
     and the square root rounded once (emulated in f64, where the f32 products
     are exact and the f64 square root rounds to the f32 one; torch's f32
     ``sqrt`` on the CPU is not always correctly rounded)."""
-    x, y, z = (d[..., i].double() for i in range(3))
+    x = d[..., 0].double()
     s = (x * x).float().double()
-    s = (y * y + s).float().double()
-    return torch.sqrt((z * z + s).float().double()).float()
+    for i in range(1, d.shape[-1]):
+        x = d[..., i].double()
+        s = (x * x + s).float().double()
+    return torch.sqrt(s).float()
 
 
 def _distance(points, centre):
     """(B, N) f32 distances of (B, N, 3) ``points`` to (B, 3) ``centre``."""
-    return norm3(points - centre[:, None, :])
+    return fused_norm(points - centre[:, None, :])
 
 
 def farthest_point_sample_reference(points, valid, num_samples: int):

@@ -109,6 +109,29 @@ def boxes_overlap_bev(boxes_a, boxes_b):
     return torch.minimum(overlap, torch.minimum(area_a, area_b))
 
 
+def paired_iou3d(boxes_a, boxes_b):
+    """(N, 7), (N, 7) -> (N,) 3D IoU of each row of ``boxes_a`` with the same
+    row of ``boxes_b``: ``boxes_iou3d``'s diagonal, differentiable (the
+    hull's successor choice is a constant under autograd)."""
+    ca = boxes_to_corners_bev(boxes_a)
+    cb = boxes_to_corners_bev(boxes_b)
+    inter_pts, inter_valid = _segment_intersections(ca, cb)
+    overlap = _convex_area_from_candidates(
+        torch.cat([ca, cb, inter_pts], dim=-2),
+        torch.cat([_points_in_convex_quad(ca, cb), _points_in_convex_quad(cb, ca), inter_valid],
+                  dim=-1))
+    overlap = torch.minimum(overlap, torch.minimum(boxes_a[:, 3] * boxes_a[:, 4],
+                                                   boxes_b[:, 3] * boxes_b[:, 4]))
+    overlap_h = torch.clamp(torch.minimum(boxes_a[:, 2] + boxes_a[:, 5] / 2.0,
+                                          boxes_b[:, 2] + boxes_b[:, 5] / 2.0)
+                            - torch.maximum(boxes_a[:, 2] - boxes_a[:, 5] / 2.0,
+                                            boxes_b[:, 2] - boxes_b[:, 5] / 2.0), min=0.0)
+    overlap_3d = overlap * overlap_h
+    vol_a = boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5]
+    vol_b = boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5]
+    return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)
+
+
 def boxes_iou_bev(boxes_a, boxes_b):
     """(N, 7), (M, 7) -> (N, M) rotated BEV IoU."""
     overlap = boxes_overlap_bev(boxes_a, boxes_b)

@@ -1,5 +1,6 @@
-"""Rotated BEV NMS with fixed-size outputs and weighted box fusion (port of
-cpd_tpu/ops/nms.py::nms_bev and ::weighted_box_fusion).
+"""Rotated BEV NMS with fixed-size outputs, the axis-aligned NMS, the
+class-agnostic and per-class NMS of the model's post-processing, and weighted
+box fusion (port of cpd_tpu/ops/nms.py).
 
 Ties in the top-k selections go lowest index first, as ``jax.lax.top_k``
 orders them: every top-k here is a stable descending sort, sliced."""
@@ -9,7 +10,7 @@ import math
 
 import torch
 
-from .iou3d import boxes_iou_bev
+from .iou3d import boxes_aligned_iou_bev, boxes_iou_bev
 
 
 def top_k(values, k: int):
@@ -61,6 +62,45 @@ def nms_bev(boxes, scores, thresh, pre_max_size=1024, post_max_size=256, valid=N
     keep_scores = torch.where(keep, top_scores, -math.inf)
     sel_scores, sel = top_k(keep_scores, min(post_max_size, k))
     return order[sel], torch.isfinite(sel_scores)
+
+
+def nms_normal_bev(boxes, scores, thresh, pre_max_size=1024, post_max_size=256, valid=None):
+    """NMS on the axis-aligned BEV footprints (``boxes_aligned_iou_bev``)."""
+    n = boxes.shape[0]
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=boxes.device)
+    scores = torch.where(valid, scores, -math.inf)
+    k = min(pre_max_size, n)
+    top_scores, order = top_k(scores, k)
+    top_boxes = boxes[order][:, :7]
+    keep = _greedy_suppress(boxes_aligned_iou_bev(top_boxes, top_boxes),
+                            torch.isfinite(top_scores), thresh)
+    sel_scores, sel = top_k(torch.where(keep, top_scores, -math.inf), min(post_max_size, k))
+    return order[sel], torch.isfinite(sel_scores)
+
+
+def class_agnostic_nms(box_scores, box_preds, nms_config, score_thresh=None, valid=None):
+    """NMS over all classes at once under ``nms_config`` (NMS_THRESH,
+    NMS_PRE_MAXSIZE, NMS_POST_MAXSIZE, USE_FAST_NMS) -> (indices, keep mask,
+    scores of the kept boxes, 0 elsewhere)."""
+    n = box_scores.shape[0]
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=box_scores.device)
+    if score_thresh is not None:
+        valid = valid & (box_scores >= score_thresh)
+    idx, mask = nms_bev(box_preds, box_scores, thresh=nms_config["NMS_THRESH"],
+                        pre_max_size=int(nms_config["NMS_PRE_MAXSIZE"]),
+                        post_max_size=int(nms_config["NMS_POST_MAXSIZE"]), valid=valid,
+                        fast=bool(nms_config.get("USE_FAST_NMS", False)))
+    return idx, mask, torch.where(mask, box_scores[idx], 0.0)
+
+
+def multi_classes_nms(cls_scores, box_preds, nms_config, score_thresh=None, valid=None):
+    """Per-class NMS of (N, num_classes) scores -> (indices, masks, scores),
+    each (num_classes, post_max): the class axis stays fixed."""
+    outs = [class_agnostic_nms(cls_scores[:, c], box_preds, nms_config, score_thresh, valid)
+            for c in range(cls_scores.shape[1])]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
 
 
 def weighted_box_fusion(boxes, scores, labels, iou_thresh=0.7, valid=None):

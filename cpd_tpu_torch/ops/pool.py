@@ -94,7 +94,7 @@ def voxel_query(query_xyz, voxel_keys, grid: GridSpec, voxel_size, point_cloud_r
     found = ((keys64[idx] == nkeys.reshape(-1)) & (nkeys.reshape(-1) != INVALID_KEY))
     idx, found = idx.reshape(nkeys.shape), found.reshape(nkeys.shape)
     centers = (nc.flip(-1).to(torch.float32) + 0.5) * vs + pcr  # (Q, W, 3) xyz
-    dist = fps.norm3(centers - query_xyz[:, None, :])
+    dist = fps.fused_norm(centers - query_xyz[:, None, :])
     score = torch.where(found & (dist <= radius), -dist, float("-inf"))
     top, sel = _top_k(score, nsample)
     sel_centers = torch.gather(centers, 1, sel[..., None].expand(-1, -1, 3))
@@ -202,7 +202,7 @@ def ball_query(query_xyz, points_xyz, points_valid, radius: float, nsample: int)
     """Dense ball query: for each of (Q, 3) queries the ``nsample`` nearest
     valid points of (N, 3+) ``points_xyz`` within ``radius`` (ties to the
     lower index). Returns (idx (Q, nsample) int32, valid (Q, nsample))."""
-    d = fps.norm3(query_xyz[:, None, :] - points_xyz[None, :, :3])
+    d = fps.fused_norm(query_xyz[:, None, :] - points_xyz[None, :, :3])
     ok = (d <= radius) & points_valid[None, :]
     top, sel = _top_k(torch.where(ok, -d, float("-inf")), nsample)
     return sel.to(torch.int32), torch.isfinite(top)
@@ -218,7 +218,7 @@ def three_nn_interpolate(query_xyz, support_xyz, support_valid, support_feats):
     """Inverse-distance interpolation from the 3 nearest valid support
     points: (Q, 3) queries, (N, 3) support with (N,) valid and (N, C)
     features -> (Q, C)."""
-    d = fps.norm3(query_xyz[:, None, :] - support_xyz[None, :, :])
+    d = fps.fused_norm(query_xyz[:, None, :] - support_xyz[None, :, :])
     d = torch.where(support_valid[None, :], d, float("inf"))
     nd, ni = _top_k(-d, 3)
     w = torch.where(torch.isfinite(nd), 1.0 / torch.clamp(-nd, min=1e-8), 0.0)

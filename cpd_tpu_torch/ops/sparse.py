@@ -259,6 +259,17 @@ def keys_from_dense_mask(mask_flat, cap: int):
     return keys, keys != INVALID_KEY
 
 
+def masked_batch_stats(features, valid):
+    """Mean and (biased) variance over the valid rows of (..., V, C)
+    features -> (mean (C,), var (C,))."""
+    mask = valid[..., None].to(features.dtype)
+    count = torch.clamp(mask.sum(), min=1.0)
+    axes = tuple(range(features.dim() - 1))
+    mean = (features * mask).sum(dim=axes) / count
+    var = (mask * (features - mean) ** 2).sum(dim=axes) / count
+    return mean, var
+
+
 def rows_from_dense(dense_flat, keys):
     """Gather (..., V, C) sparse rows out of a (..., num_cells, C) dense grid;
     padding rows (INVALID_KEY) come back zero."""
@@ -329,3 +340,15 @@ def sparse_conv_apply_batched(features, rulebook: Rulebook, weights,
         out = gather_gemm(features.contiguous(), rulebook.idx, rulebook.found,
                           weights.reshape(k * cin, cout).contiguous(), out_dtype=out_dtype)
     return torch.where(rulebook.out_valid[..., None], out, 0.0)
+
+
+def sparse_conv_apply(features, rulebook: Rulebook, weights, bias=None, compute_dtype=None):
+    """One sample's sparse conv: features (V_in, Cin), a rulebook without a
+    batch axis, weights (K, Cin, Cout) -> (V_out, Cout) f32, plus ``bias``,
+    0 outside ``out_valid``: ``sparse_conv_apply_batched`` (kernel A1) at
+    batch 1, forward only."""
+    out = sparse_conv_apply_batched(features[None], Rulebook(*(f[None] for f in rulebook)),
+                                    weights, compute_dtype=compute_dtype)[0]
+    if bias is not None:
+        out = out + bias
+    return torch.where(rulebook.out_valid[:, None], out, 0.0)

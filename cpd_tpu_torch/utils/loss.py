@@ -48,6 +48,14 @@ def weighted_smooth_l1_loss(preds, targets, weights, code_weights=None,
     return smooth_l1(diff, beta) * weights[..., None]
 
 
+def weighted_l1_loss(preds, targets, weights, code_weights=None):
+    """preds/targets: (..., D); weights: (...,). Returns (..., D)."""
+    diff = preds - targets
+    if code_weights is not None:
+        diff = diff * torch.as_tensor(code_weights, dtype=diff.dtype, device=diff.device)
+    return torch.abs(diff) * weights[..., None]
+
+
 def binary_cross_entropy_with_logits(logits, targets):
     return (torch.clamp(logits, min=0) - logits * targets
             + torch.log1p(torch.exp(-torch.abs(logits))))
@@ -152,3 +160,15 @@ def cosine_consistency_loss(feat_a, feat_b, mask=None):
         m = mask.to(cos.dtype)
         return -torch.sum(cos * m) / torch.clamp(global_sum(torch.sum(m)), min=1.0)
     return -torch.sum(cos) / global_sum(cos.new_tensor(float(cos.numel())))
+
+
+def odiou_3d(pred_boxes, gt_boxes, weights=None):
+    """Rotated 3D IoU loss, 1 - IoU of each (N, 7) prediction with its
+    label, averaged (weighted where ``weights`` is given); differentiable
+    through the candidate-hull overlap."""
+    from ..ops.iou3d import paired_iou3d
+
+    loss = 1.0 - paired_iou3d(pred_boxes[:, :7], gt_boxes[:, :7])
+    if weights is not None:
+        return torch.sum(loss * weights) / torch.clamp(torch.sum(weights), min=1.0)
+    return torch.mean(loss)

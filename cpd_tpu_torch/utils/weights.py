@@ -23,6 +23,18 @@ names with ``Conv_0`` / ``BatchNorm2d_0`` / ``Conv_1`` -> ``conv`` / ``bn`` /
 * Dense (Cin, Cout) -> Linear (Cout, Cin);
 * BN scale/bias/mean/var -> weight/bias/running_mean/running_var.
 
+The toolbox modules: DeformConv2d's ``offset_conv`` and ``kernel`` (K, Cin,
+Cout) -> ``offset_conv`` and ``weight``; VectorPool's ``layer_{k}``,
+``sep_kernel``, ``sep_bn``, ``post_{i}``, ``post_bn_{i}``, ``msg_post_{i}``
+and ``msg_post_bn_{i}`` keep their names. In a transformer model (the
+model handed in is one) ``enc{i}`` / ``self{i}`` / ``cross{i}`` -> ``blocks``
+/ ``self_blocks`` / ``cross_blocks.{i}``, the root ``Dense_0`` /
+``LayerNorm_0`` -> ``proj`` / ``norm``, and in a block ``LayerNorm_0/1`` ->
+``norm0/1``, ``MultiHeadDotProductAttention_0`` -> ``attn``, ``Dense_0/1``
+-> ``mlp0/1``; the attention's (dim, heads, head_dim) query/key/value
+kernels and (heads, head_dim, dim) output kernel become Linear weights,
+their (heads, head_dim) biases flat.
+
 The MM modules (``branch1``, ``pool_branch_mm``, ``shared1``, ``cls_tower1``,
 ``reg_tower1``) follow the same rules. ``grads_to_jax_tree`` is the bridge's
 inverse for gradients: the port's parameter gradients in the layout of the
@@ -40,6 +52,7 @@ import re
 import numpy as np
 import torch
 
+from ..models import transformer
 from ..models.norm import _RunningNorm
 from ..models.pfe import SCALE_SPECS as PFE_SCALE_SPECS
 from ..models.roi_head import SCALE_SPECS
@@ -71,6 +84,48 @@ def _own_path(mods):
     return None
 
 
+_BLOCK_SEGMENTS = {"LayerNorm_0": "norm0", "LayerNorm_1": "norm1", "ctx_norm": "ctx_norm",
+                   "MultiHeadDotProductAttention_0": "attn", "Dense_0": "mlp0",
+                   "Dense_1": "mlp1"}
+_STACKS = {"enc": "blocks", "self": "self_blocks", "cross": "cross_blocks"}
+
+
+def _block_path(mods, name, leaf):
+    """(port module path, layout) of a leaf inside a TransformerBlock."""
+    if not mods or mods[0] not in _BLOCK_SEGMENTS:
+        raise KeyError(f"unmapped transformer block module {'/'.join(mods)}")
+    out = [_BLOCK_SEGMENTS[mods[0]]] + mods[1:]
+    layout = None
+    if out[0] == "attn" and len(out) == 2:
+        if name == "kernel":
+            layout = "heads_out" if out[1] == "out" else "heads_in"
+        elif leaf.ndim == 2:  # a (heads, head_dim) bias
+            layout = "flat"
+    return out, layout
+
+
+def _renamer(model):
+    """For a transformer model, the renaming of its flax paths: (mods, leaf
+    name, leaf) -> (port module path, layout or None for the default);
+    None for every other model."""
+    if isinstance(model, transformer.TransformerBlock):
+        return _block_path
+    if not isinstance(model, (transformer.TransformerEncoder, transformer.TransformerDecoder)):
+        return None
+
+    def rename(mods, name, leaf):
+        stack = re.fullmatch(r"(enc|self|cross)(\d+)", mods[0]) if mods else None
+        if stack:
+            inner, layout = _block_path(mods[1:], name, leaf)
+            return [_STACKS[stack.group(1)], stack.group(2)] + inner, layout
+        if mods == ["Dense_0"]:
+            return ["proj"], None
+        if mods == ["LayerNorm_0"]:
+            return ["norm"], None
+        raise KeyError(f"unmapped transformer module {'/'.join(mods)}/{name}")
+    return rename
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if hasattr(v, "items"):
@@ -79,12 +134,18 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-def _key_and_layout(path, leaf):
+def _key_and_layout(path, leaf, rename=None):
     """One JAX leaf -> (torch key, layout): how the leaf's axes map, one of
-    "same", "dense", "conv", "deconv"."""
+    "same", "dense", "conv", "deconv", "heads_in", "heads_out", "flat".
+    ``rename`` (``_renamer``) maps the paths of a model of its own."""
     *mods, name = path
-    own = _own_path(mods) if mods else None
-    if own is not None:
+    own = _own_path(mods) if mods and rename is None else None
+    forced = None
+    if rename is not None:
+        if path == ("queries",):  # the decoder's learned queries
+            return "queries", "same"
+        mods, forced = rename(list(mods), name, leaf)
+    elif own is not None:
         mods = own
     else:
         if mods and re.fullmatch(r"Dense_\d+", mods[-1]) and (
@@ -96,6 +157,8 @@ def _key_and_layout(path, leaf):
             mods = [re.sub(r"^MaskedBatchNorm_(\d+)$", r"bn\1", m) for m in mods]
         mods = [_SEGMENTS.get(m, m) for m in mods]
     layout = "same"
+    if name == "sep_kernel":  # VectorPool's per-cell (G, Cin, Cout) linear
+        return ".".join(mods + [name]), layout
     if name == "kernel":
         if leaf.ndim == 2:
             layout = "dense"
@@ -110,7 +173,7 @@ def _key_and_layout(path, leaf):
         key = _LEAVES[name]
     else:
         raise KeyError(f"unmapped JAX leaf {'/'.join(path)}")
-    return ".".join(mods + [key]), layout
+    return ".".join(mods + [key]), forced or layout
 
 
 def _to_torch(leaf, layout):
@@ -120,22 +183,34 @@ def _to_torch(leaf, layout):
         return np.transpose(leaf, (3, 2, 0, 1))
     if layout == "deconv":  # (kh, kw, Cin, Cout) -> (Cin, Cout, kh, kw), taps flipped
         return np.transpose(leaf[::-1, ::-1], (2, 3, 0, 1))
+    if layout == "heads_in":  # (dim, heads, head_dim) -> (heads * head_dim, dim)
+        return leaf.reshape(leaf.shape[0], -1).T
+    if layout == "heads_out":  # (heads, head_dim, dim) -> (dim, heads * head_dim)
+        return leaf.reshape(-1, leaf.shape[-1]).T
+    if layout == "flat":
+        return leaf.reshape(-1)
     return leaf
 
 
-def _to_jax(arr, layout):
+def _to_jax(arr, layout, shape=None):
+    """``_to_torch``'s inverse; ``shape``, the JAX leaf's, undoes the
+    attention layouts."""
     if layout == "dense":
         return arr.T
     if layout == "conv":
         return np.transpose(arr, (2, 3, 1, 0))
     if layout == "deconv":
         return np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1]
+    if layout in ("heads_in", "heads_out"):
+        return arr.T.reshape(shape)
+    if layout == "flat":
+        return arr.reshape(shape)
     return arr
 
 
-def _convert(path, leaf):
+def _convert(path, leaf, rename=None):
     """One JAX leaf -> (torch key, array)."""
-    key, layout = _key_and_layout(path, leaf)
+    key, layout = _key_and_layout(path, leaf, rename)
     return key, np.ascontiguousarray(_to_torch(leaf, layout))
 
 
@@ -145,14 +220,15 @@ def grads_to_jax_tree(model, params):
     model's weights came from. Raises on a leaf without a counterpart or a
     parameter without a gradient."""
     named = dict(model.named_parameters())
+    rename = _renamer(model)
     out = {}
     for path, leaf in _flatten(params):
-        key, layout = _key_and_layout(path, leaf)
+        key, layout = _key_and_layout(path, leaf, rename)
         if key not in named:
             raise KeyError(f"JAX leaf {'/'.join(path)} has no parameter {key}")
         if named[key].grad is None:
             raise ValueError(f"parameter {key} has no gradient")
-        grad = _to_jax(named.pop(key).grad.detach().float().cpu().numpy(), layout)
+        grad = _to_jax(named.pop(key).grad.detach().float().cpu().numpy(), layout, leaf.shape)
         node = out
         for m in path[:-1]:
             node = node.setdefault(m, {})
@@ -168,9 +244,10 @@ def state_dict_from_jax(variables, model):
     Checks that every model key is filled, every JAX leaf is used and every
     shape matches; raises on any mismatch."""
     out = {}
+    rename = _renamer(model)
     for col in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(col, {})):
-            key, arr = _convert(path, leaf)
+            key, arr = _convert(path, leaf, rename)
             if key in out:
                 raise KeyError(f"two JAX leaves map to {key}")
             out[key] = torch.from_numpy(arr.astype(np.float32))

@@ -20,7 +20,6 @@ port against the JAX package, on the CPU, and the optimizer's repair.
 """
 import copy
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -35,9 +34,10 @@ from cpd_tpu_torch.models.detector import VoxelRCNN
 from cpd_tpu_torch.parallel import trainer
 from cpd_tpu_torch.utils.synthetic import make_tiny_train_batch
 from cpd_tpu_torch.utils.weights import seeded_state_dict
+from tests import torch_port_refs as refs
 from tests.test_torch_port_build_network import _np, _scaled_close
 from tests.test_torch_port_registry import (PROPOSAL_KEYS, _t, check_loss_step,
-                                            jax_forward, jax_loss_step, jax_slice_f32,
+                                            jax_loss_step, jax_predict, jax_slice_f32,
                                             port_loss_step, slice_batch, slice_pair)
 
 ALIGN_KW = dict(_TINY, mm=False, with_roi_head=False, align_stages=2, align_method="mean",
@@ -70,15 +70,23 @@ def align_batch(seed=5):
 
 @pytest.fixture(scope="module")
 def align_slice():
+    """The port's slice; the JAX eval forward and post-processing are the
+    committed reference ``align_slice``, the JAX training step runs here."""
     batch = align_batch()
+    ref = refs.load("align_slice")
     with jax_slice_f32():
         jm, variables, pm = slice_pair(jdet.VoxelRCNN, VoxelRCNN, ALIGN_KW, batch)
-        jout = jax_forward(jm, variables, batch, PROPOSAL_KEYS)
-        jv = jax.tree_util.tree_map(jnp.asarray, variables)
-        jpred = jax.device_get(jax.jit(lambda v, o: jm.apply(
-            v, o, method=jdet.VoxelRCNN.post_processing))(jv, jout))
         step = jax_loss_step(jm, variables, batch)
-    return variables, pm, batch, jout, jpred, step
+    return variables, pm, batch, ref["out"], ref["pred"], step
+
+
+@pytest.mark.slow
+def test_align_slice_reference_is_regenerated():
+    batch = align_batch()
+    with jax_slice_f32():
+        jm, variables, _ = slice_pair(jdet.VoxelRCNN, VoxelRCNN, ALIGN_KW, batch)
+        live = jax_predict(jm, variables, batch, PROPOSAL_KEYS)
+    refs.assert_regenerated("align_slice", live)
 
 
 def test_align_slice_predict_packed_and_sequential_match(align_slice):

@@ -34,6 +34,7 @@ from cpd_tpu_torch.ops import iou3d
 from cpd_tpu_torch.utils import loss as ploss
 from cpd_tpu_torch.utils.weights import state_dict_from_jax
 from tests.test_torch_port_models import seeded_jax_variables
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 PCR = (-12.0, -12.0, -2.0, 12.0, 12.0, 4.0)
 SIZES = ((4.7, 2.1, 1.7), (0.91, 0.86, 1.73), (1.78, 0.84, 1.78))

@@ -19,11 +19,12 @@ f32 under ``jax_f32`` with its NMS on the clip-method IoU.
   the total within 1e-4 relative, and the tb keys those of the JAX step.
 
 The two yamls build equal JAX models (the OYSTER yaml differs only in its
-dataset), so the JAX side runs once for both (``_jax_once``): the OYSTER
-cases hold a port model built from their own yaml to the same reference.
+dataset), so one JAX reference serves both: the committed ``anchor_models``
+(``tests/torch_port_refs``), recomputed from the DBSCAN yaml by
+``test_anchor_models_reference_is_regenerated`` (``-m slow``); the OYSTER
+cases hold a port model built from their own yaml to it.
 """
 import copy
-import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ import pytest
 import torch
 
 from cpd_tpu.models import roi_head as jroi
+from tests import torch_port_refs as refs
 from tests.test_torch_port_anchor import jax_anchors_eager
 from tests.test_torch_port_build_network import (SCALE_SETS, _np, _scaled_close, frames_batch,
                                                  jax_f32, load_pair, pair_detections, seeded_pair)
@@ -48,7 +50,6 @@ ANCHOR_SETS = SCALE_SETS + [
     "MODEL.ROI_HEAD.DP_RATIO", "0.0",
 ]
 PROPOSAL_KEYS = ("rois", "roi_scores", "roi_labels", "roi_valid")
-_JAX_RUNS = []  # (what, JAX model, digest of the inputs, outputs)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -59,22 +60,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-def _jax_once(what, jm, arrays, run):
-    """``run()``'s outputs, computed once for an equal JAX model (flax
-    modules compare by their fields) and the same input bytes."""
-    digest = hashlib.sha1(b"".join(np.ascontiguousarray(a).tobytes() for a in arrays)).digest()
-    for w, m, d, out in _JAX_RUNS:
-        if w == what and m == jm and d == digest:
-            return out
-    out = run()
-    _JAX_RUNS.append((what, jm, digest, out))
-    return out
-
-
-def _leaves(variables):
-    return jax.tree_util.tree_leaves(variables)
 
 
 def _t(x):
@@ -90,21 +75,25 @@ def anchor_pair(request):
     return jm, variables, pm
 
 
-def test_anchor_model_predict_matches(anchor_pair):
-    jm, variables, pm = anchor_pair
-    pts, valid = frames_batch(2)
-    def run():
-        jv = jax.tree_util.tree_map(jnp.asarray, variables)
-        jbatch = {"points": jnp.asarray(pts), "points_valid": jnp.asarray(valid)}
-        with jax_f32(), jax_nms_with_clip_iou():
-            jout = jax.jit(lambda v, b: jm.apply(v, b, False))(jv, jbatch)
-            keep = ("batch_box_preds", "batch_cls_preds", "roi_labels", "roi_valid")
-            jpred = jax.jit(lambda v, o: jm.apply(v, o, method=type(jm).post_processing))(
-                jv, {k: jout[k] for k in keep})
-            jout = {k: v for k, v in jout.items() if k not in ("head_preds", "backbone_out")}
-        return jax.device_get((jout, jpred))
+def jax_anchor_predict(jm, variables, pts, valid):
+    """The JAX model's f32 eval forward (less its maps) and post-processing."""
+    jv = jax.tree_util.tree_map(jnp.asarray, variables)
+    jbatch = {"points": jnp.asarray(pts), "points_valid": jnp.asarray(valid)}
+    with jax_f32(), jax_nms_with_clip_iou():
+        jout = jax.jit(lambda v, b: jm.apply(v, b, False))(jv, jbatch)
+        keep = ("batch_box_preds", "batch_cls_preds", "roi_labels", "roi_valid")
+        jpred = jax.jit(lambda v, o: jm.apply(v, o, method=type(jm).post_processing))(
+            jv, {k: jout[k] for k in keep})
+        jout = {k: v for k, v in jout.items() if k not in ("head_preds", "backbone_out")}
+    jout, jpred = jax.device_get((jout, jpred))
+    return {"out": jout, "pred": dict(jpred)}
 
-    jout, jpred = _jax_once("predict", jm, [pts, valid] + _leaves(variables), run)
+
+def test_anchor_model_predict_matches(anchor_pair):
+    _, _, pm = anchor_pair
+    pts, valid = frames_batch(2)
+    ref = refs.load("anchor_models")["predict"]
+    jout, jpred = ref["out"], ref["pred"]
     with torch.no_grad():
         pout = pm({"points": _t(pts), "points_valid": _t(valid)})
         ppred = pm.post_processing(pout)
@@ -161,8 +150,9 @@ def _labels_on_proposals(pm, points, valid, rng, n_gt=16):
     return gt, gv
 
 
-def test_anchor_model_loss_step_matches(anchor_pair):
-    jm, variables, pm = anchor_pair
+def loss_batch(pm):
+    """The loss step's batch (labels on the port model's own training
+    proposals) and its sampling uniforms."""
     pm = copy.deepcopy(pm)  # the step moves the running statistics
     pts, valid = frames_batch(2, seed=1)
     rng = np.random.default_rng(0)
@@ -170,25 +160,39 @@ def test_anchor_model_loss_step_matches(anchor_pair):
     batch = {"points": pts, "points_valid": valid, "gt_boxes": gt, "gt_valid": gv,
              "css_score": rng.uniform(0.5, 1.0, gv.shape).astype(np.float32)}
     table = rng.random((2, 6, pm.num_rois)).astype(np.float32)
+    return batch, table
+
+
+def jax_anchor_loss_step(jm, variables, batch, table):
+    """The JAX training forward's loss, tb and proposals (jitted, f32)."""
     def jstep(m, b):
         out = m(b, train=True)
         nms = dict(m.rpn_nms, NMS_POST_MAXSIZE=m.num_rois)
         return m.compute_loss(out, b), m._anchor_proposals(out["head_preds"], m.num_rois, nms)
 
-    def run():
-        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-        jbatch["cur_it"] = jnp.asarray(1500.0, jnp.float32)
-        jv = jax.tree_util.tree_map(jnp.asarray, variables)
-        with jax_f32(), jax_nms_with_clip_iou(), jax_anchors_eager(), \
-                injected_sampling_uniforms(table), pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jroi, "boxes_iou3d", _clip_iou3d)
-            return jax.device_get(jax.jit(lambda v, b: jm.apply(
-                v, b, method=jstep, mutable=["batch_stats"],
-                rngs={"sampling": jax.random.PRNGKey(3), "dropout": jax.random.PRNGKey(4)})[0])(
-                jv, jbatch))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jbatch["cur_it"] = jnp.asarray(1500.0, jnp.float32)
+    jv = jax.tree_util.tree_map(jnp.asarray, variables)
+    with jax_f32(), jax_nms_with_clip_iou(), jax_anchors_eager(), \
+            injected_sampling_uniforms(table), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jroi, "boxes_iou3d", _clip_iou3d)
+        (total, tb), prop = jax.device_get(jax.jit(lambda v, b: jm.apply(
+            v, b, method=jstep, mutable=["batch_stats"],
+            rngs={"sampling": jax.random.PRNGKey(3), "dropout": jax.random.PRNGKey(4)})[0])(
+            jv, jbatch))
+    return {"total": total, "tb": dict(tb), "proposals": dict(prop), "batch": batch,
+            "table": table}
 
-    (jtotal, jtb), jprop = _jax_once("loss_step", jm, list(batch.values()) + [table]
-                                     + _leaves(variables), run)
+
+def test_anchor_model_loss_step_matches(anchor_pair):
+    """The JAX side is the committed reference ``anchor_models``, with the
+    batch it was computed on (labels placed on the DBSCAN port model's
+    proposals); the port computes the loss on that batch."""
+    _, _, pm = anchor_pair
+    pm = copy.deepcopy(pm)  # the step moves the running statistics
+    ref = refs.load("anchor_models")["loss_step"]
+    jtotal, jtb, jprop = ref["total"], ref["tb"], ref["proposals"]
+    batch, table = ref["batch"], ref["table"]
     proposals = {k: _t(v) for k, v in jprop.items()}
     pbatch = {k: _t(v) for k, v in batch.items()}
     pbatch["cur_it"] = 1500.0
@@ -203,3 +207,15 @@ def test_anchor_model_loss_step_matches(anchor_pair):
         assert abs(port - ref) <= 1e-4 * max(abs(ref), 1e-6), (k, port, ref)
     assert float(jtb["rpn_reg"]) > 0 and float(jtb["rcnn_reg0"]) > 0
     assert abs(float(ptotal.detach()) - float(jtotal)) <= 1e-4 * abs(float(jtotal))
+
+
+@pytest.mark.slow
+def test_anchor_models_reference_is_regenerated():
+    """The committed ``anchor_models``: the DBSCAN yaml's JAX predict and
+    training forward (the OYSTER yaml builds an equal JAX model)."""
+    port_cfg, jax_cfg = load_pair(YAMLS[0], ANCHOR_SETS)
+    with jax_f32():
+        jm, variables, pm = seeded_pair(port_cfg, jax_cfg)
+    live = {"predict": jax_anchor_predict(jm, variables, *frames_batch(2)),
+            "loss_step": jax_anchor_loss_step(jm, variables, *loss_batch(pm))}
+    refs.assert_regenerated("anchor_models", live)

@@ -29,6 +29,7 @@ from cpd_tpu_torch.models import backbone3d, norm
 from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch.ops.gather_gemm import (gather_gemm_dw, gather_gemm_dw_reference,
                                            gather_gemm_reference)
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 GRID = sparse.GridSpec(20, 18, 11)
 

@@ -43,7 +43,9 @@ from cpd_tpu_torch.models import build_network
 from cpd_tpu_torch.models.detector import VoxelRCNN, set_compute_dtype
 from cpd_tpu_torch.utils.synthetic import make_lidar_frame
 from cpd_tpu_torch.utils.weights import state_dict_from_jax
+from tests import torch_port_refs as refs
 from tests.test_torch_port_models import jax_nms_with_clip_iou, seeded_jax_variables
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 SHIPPED = "tools/cfgs/models/voxel_rcnn_cproto_center.yaml"
 KITTI = "tools/cfgs/models/voxel_rcnn_cproto_center_kitti.yaml"
@@ -225,28 +227,48 @@ def _np(tree):
             for k, v in tree.items()}
 
 
+PROPOSAL_KEYS = ("rois", "roi_scores", "roi_labels", "roi_valid")
+
+
+def jax_f32_predict(jm, variables, pts, valid):
+    """The JAX model's f32 eval forward (its proposals) and post-processing."""
+    jv = jax.tree_util.tree_map(jnp.asarray, variables)
+    jbatch = {"points": jnp.asarray(pts), "points_valid": jnp.asarray(valid)}
+    with jax_f32(), jax_nms_with_clip_iou():
+        jout = jax.jit(lambda v, b: jm.apply(v, b, False))(jv, jbatch)
+        keep = ("batch_box_preds", "batch_cls_preds", "roi_labels", "roi_valid")
+        jpred = jax.jit(lambda v, o: jm.apply(v, o, method=type(jm).post_processing))(
+            jv, {k: jout[k] for k in keep})
+    jout, jpred = jax.device_get((jout, jpred))
+    return {"out": {k: jout[k] for k in PROPOSAL_KEYS}, "pred": dict(jpred)}
+
+
+def _f32_pair():
+    port_cfg, jax_cfg = load_pair(SHIPPED, SCALE_SETS)
+    with jax_f32():
+        return seeded_pair(port_cfg, jax_cfg)
+
+
 @pytest.fixture(scope="module")
 def f32_predict():
-    port_cfg, jax_cfg = load_pair(SHIPPED, SCALE_SETS)
+    """The port's predict and the committed JAX reference ``build_network``."""
     pts, valid = frames_batch(2)
-    with jax_f32():
-        jm, variables, pm = seeded_pair(port_cfg, jax_cfg)
-        jv = jax.tree_util.tree_map(jnp.asarray, variables)
-        jbatch = {"points": jnp.asarray(pts), "points_valid": jnp.asarray(valid)}
-        with jax_nms_with_clip_iou():
-            jout = jax.jit(lambda v, b: jm.apply(v, b, False))(jv, jbatch)
-            keep = ("batch_box_preds", "batch_cls_preds", "roi_labels", "roi_valid")
-            jpred = jax.jit(lambda v, o: jm.apply(v, o, method=type(jm).post_processing))(
-                jv, {k: jout[k] for k in keep})
-    jout, jpred = jax.device_get((jout, jpred))
+    _, _, pm = _f32_pair()
+    ref = refs.load("build_network")
+    jout, jpred = ref["out"], ref["pred"]
     pbatch = {"points": torch.from_numpy(pts), "points_valid": torch.from_numpy(valid)}
     with torch.no_grad():
         pout = pm(pbatch)
         ppred = pm.post_processing(pout)
-        proposals = {k: torch.from_numpy(np.array(jout[k]))
-                     for k in ("rois", "roi_scores", "roi_labels", "roi_valid")}
+        proposals = {k: torch.from_numpy(np.array(jout[k])) for k in PROPOSAL_KEYS}
         handed = pm.post_processing(pm.roi_head(proposals, pout["backbone_out"]))
     return pout, ppred, handed, jout, jpred
+
+
+@pytest.mark.slow
+def test_build_network_reference_is_regenerated():
+    jm, variables, _ = _f32_pair()
+    refs.assert_regenerated("build_network", jax_f32_predict(jm, variables, *frames_batch(2)))
 
 
 def _scaled_close(port, ref, what):

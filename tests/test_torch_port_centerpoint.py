@@ -16,6 +16,7 @@ import torch
 from __graft_entry__ import _TINY
 from cpd_tpu.models import centerpoint as jcp
 from cpd_tpu_torch.models.centerpoint import CenterPoint
+from tests import torch_port_refs as refs
 from tests.test_torch_port_build_network import _np, _scaled_close
 from tests.test_torch_port_registry import (_t, check_loss_step, jax_forward, jax_loss_step,
                                             jax_slice_f32, one_thread,  # noqa: F401
@@ -31,11 +32,21 @@ def centerpoint_slice():
     """JAX's CenterPoint and the port's, the same seeded weights, f32, and
     the JAX side's eval forward and training step, once."""
     batch = slice_batch(history=False, seed=2)
+    jout = refs.load("centerpoint_forward")
     with jax_slice_f32():
         jm, variables, pm = slice_pair(jcp.CenterPoint, CenterPoint, CENTERPOINT_KW, batch)
-        jout = jax_forward(jm, variables, batch, ("head_preds",) + PRED_KEYS)
         step = jax_loss_step(jm, variables, batch)
     return variables, pm, batch, jout, step
+
+
+@pytest.mark.slow
+def test_centerpoint_forward_reference_is_regenerated():
+    """The committed ``centerpoint_forward``: JAX's jitted eval forward."""
+    batch = slice_batch(history=False, seed=2)
+    with jax_slice_f32():
+        jm, variables, _ = slice_pair(jcp.CenterPoint, CenterPoint, CENTERPOINT_KW, batch)
+        live = jax_forward(jm, variables, batch, ("head_preds",) + PRED_KEYS)
+    refs.assert_regenerated("centerpoint_forward", live)
 
 
 def test_centerpoint_predict_matches(centerpoint_slice):

@@ -49,6 +49,7 @@ from cpd_tpu_torch.utils.checkpoint import save_checkpoint
 from cpd_tpu_torch.utils.synthetic import (make_lidar_frame, write_gt_database,
                                            write_waymo_sequence)
 from cpd_tpu_torch.utils.weights import state_dict_from_jax
+from tests import torch_port_refs as refs
 from tests.test_torch_port_anchor_models import ANCHOR_SETS
 from tests.test_torch_port_build_network import RANGE, jax_f32, jax_shapes, load_pair
 from tests.test_torch_port_cli_eval import _frames, _pairs
@@ -148,13 +149,21 @@ def _eval_argv(root, out, *extra):
             "DATA_CONFIG.SAMPLED_INTERVAL.test", "1", *ANCHOR_SETS]
 
 
-@pytest.fixture(scope="module")
-def eval_results(tmp_path_factory):
-    """result.pkl of the JAX CLI (a TrainState with the seeded weights) and
-    of the port CLI (the same weights through a checkpoint)."""
+def _eval_sequence(tmp_path_factory):
     root = tmp_path_factory.mktemp("waymo_cli_anchor")
     write_waymo_sequence(root, SEQ, _frames(), seed=3, n_boxes=6, r_max=RANGE - 1.0)
-    port_cfg, jax_cfg = load_pair(DBSCAN, ANCHOR_SETS)
+    return root
+
+
+def _jax_weights():
+    _, jax_cfg = load_pair(DBSCAN, ANCHOR_SETS)
+    with jax_f32():
+        jm = jdet.build_network(jax_cfg.MODEL, len(jax_cfg.CLASS_NAMES), jax_cfg.DATA_CONFIG)
+        return jm, seeded_jax_variables(jax_shapes(jm), 0)
+
+
+def jax_eval_reference(root, jm, variables):
+    """result.pkl of the JAX CLI (a TrainState with the seeded weights)."""
     from tools import test as jax_cli
     tx = optax.sgd(0.1)
     with pytest.MonkeyPatch.context() as mp:
@@ -162,9 +171,6 @@ def eval_results(tmp_path_factory):
         jconfig.cfg.clear()
         try:
             with jax_f32(), jax_nms_with_clip_iou():
-                jm = jdet.build_network(jax_cfg.MODEL, len(jax_cfg.CLASS_NAMES),
-                                        jax_cfg.DATA_CONFIG)
-                variables = seeded_jax_variables(jax_shapes(jm), 0)
                 jv = jax.tree_util.tree_map(jnp.asarray, variables)
                 state = TrainState(step=jnp.zeros((), jnp.int32), params=jv["params"],
                                    batch_stats=jv["batch_stats"], opt_state=tx.init(jv["params"]),
@@ -173,17 +179,32 @@ def eval_results(tmp_path_factory):
         finally:
             jconfig.cfg.clear()
             jconfig.cfg["LOCAL_RANK"] = 0
+    with open(root / "jax" / "result.pkl", "rb") as f:
+        return {"results": pickle.load(f)}
+
+
+@pytest.fixture(scope="module")
+def eval_results(tmp_path_factory):
+    """result.pkl of the port CLI (the seeded weights through a checkpoint)
+    and the JAX CLI's, the committed reference ``cli_anchor_eval``."""
+    root = _eval_sequence(tmp_path_factory)
+    port_cfg, _ = load_pair(DBSCAN, ANCHOR_SETS)
+    _, variables = _jax_weights()
     parts = (port_cfg.MODEL, len(port_cfg.CLASS_NAMES), port_cfg.DATA_CONFIG)
     model = build_network(*parts)
     model.load_state_dict(state_dict_from_jax(variables, model), strict=True)
     ckpt = save_checkpoint(root / "ckpt", model, 0)
     port_eval.main(_eval_argv(root, root / "port", "--ckpt", str(ckpt), "--device", "cpu"),
                    state=set_compute_dtype(build_network(*parts), None))
-    out = {}
-    for side in ("jax", "port"):
-        with open(root / side / "result.pkl", "rb") as f:
-            out[side] = pickle.load(f)
-    return out
+    with open(root / "port" / "result.pkl", "rb") as f:
+        port = pickle.load(f)
+    return {"jax": refs.load("cli_anchor_eval")["results"], "port": port}
+
+
+@pytest.mark.slow
+def test_cli_anchor_eval_reference_is_regenerated(tmp_path_factory):
+    root = _eval_sequence(tmp_path_factory)
+    refs.assert_regenerated("cli_anchor_eval", jax_eval_reference(root, *_jax_weights()))
 
 
 def test_eval_cli_result_pkl_matches_the_jax_cli(eval_results):

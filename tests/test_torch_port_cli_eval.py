@@ -42,6 +42,7 @@ from cpd_tpu_torch.tools import test as port_cli
 from cpd_tpu_torch.utils.checkpoint import save_checkpoint
 from cpd_tpu_torch.utils.synthetic import make_lidar_frame, write_waymo_sequence
 from cpd_tpu_torch.utils.weights import state_dict_from_jax
+from tests import torch_port_refs as refs
 from tests.test_torch_port_build_network import (RANGE, SCALE_SETS, SHIPPED, jax_f32, jax_shapes,
                                                  load_pair, pair_detections)
 from tests.test_torch_port_models import jax_nms_with_clip_iou, seeded_jax_variables
@@ -115,14 +116,19 @@ def _jax_scored(det_annos, root):
     return out
 
 
-@pytest.fixture(scope="module")
-def cli_runs(tmp_path_factory):
-    """The JAX CLI runs first; the sequence's gt boxes then become its
-    detections, and the port CLI runs against those. The JAX reference dict
-    is the JAX CLI's evaluation of its result.pkl against the same gt."""
-    root = tmp_path_factory.mktemp("waymo_cli")
-    write_waymo_sequence(root, SEQ, _frames(), seed=3, n_boxes=6, r_max=RANGE - 1.0)
+def jax_weights():
+    """The JAX model built from the cut yaml and its seeded variables."""
     _, jax_cfg = load_pair(SHIPPED, SCALE_SETS)
+    with jax_f32():
+        jm = jdet.build_network(jax_cfg.MODEL, len(jax_cfg.CLASS_NAMES), jax_cfg.DATA_CONFIG)
+        return jm, seeded_jax_variables(jax_shapes(jm), 0)
+
+
+def jax_cli_reference(root, jm, variables):
+    """What the JAX CLI makes of the written sequence under ``root`` with
+    the seeded weights: its result.pkl, its result dict, whether it wrote a
+    log with its frame rate, and the JAX evaluation of that result.pkl once
+    the sequence's gt boxes are its detections (``_set_gt``)."""
     from tools import test as jax_cli
     tx = optax.sgd(0.1)
     # the JAX create_logger gives a log file only to a logger without one: a
@@ -136,21 +142,40 @@ def cli_runs(tmp_path_factory):
         jconfig.cfg.clear()
         try:
             with jax_f32(), jax_nms_with_clip_iou():
-                jm = jdet.build_network(jax_cfg.MODEL, len(jax_cfg.CLASS_NAMES),
-                                        jax_cfg.DATA_CONFIG)
-                variables = seeded_jax_variables(jax_shapes(jm), 0)
                 jv = jax.tree_util.tree_map(jnp.asarray, variables)
                 state = TrainState(step=jnp.zeros((), jnp.int32), params=jv["params"],
                                    batch_stats=jv["batch_stats"], opt_state=tx.init(jv["params"]),
                                    tx=tx, apply_fn=jm.apply)
-                jax_first = jax_cli.main(_argv(root, root / "jax"), state=state)
+                first = jax_cli.main(_argv(root, root / "jax"), state=state)
         finally:
             jconfig.cfg.clear()
             jconfig.cfg["LOCAL_RANK"] = 0
-    results = {}
     with open(root / "jax" / "result.pkl", "rb") as f:
-        results["jax"] = pickle.load(f)
-    assert jax_first["gt_count"] == N_FRAMES * 6  # the written boxes, before they are replaced
+        results = pickle.load(f)
+    _set_gt(root, results)
+    return {"results": results, "first": {k: float(v) for k, v in first.items()},
+            "log_has_rate": "f/s" in (root / "jax" / "log_eval.txt").read_text(),
+            "scored": {k: float(v) for k, v in _jax_scored(results, root).items()}}
+
+
+def _written_sequence(tmp_path_factory):
+    root = tmp_path_factory.mktemp("waymo_cli")
+    write_waymo_sequence(root, SEQ, _frames(), seed=3, n_boxes=6, r_max=RANGE - 1.0)
+    return root
+
+
+@pytest.fixture(scope="module")
+def cli_runs(tmp_path_factory):
+    """The JAX CLI's run is the committed reference ``cli_eval``; the
+    sequence's gt boxes then become its detections, and the port CLI runs
+    against those. The JAX reference dict is the JAX CLI's evaluation of its
+    result.pkl against the same gt."""
+    root = _written_sequence(tmp_path_factory)
+    _, variables = jax_weights()
+    ref = refs.load("cli_eval")
+    results = {"jax": ref["results"]}
+    assert ref["first"]["gt_count"] == N_FRAMES * 6  # the written boxes, before they are replaced
+    assert ref["log_has_rate"]
     _set_gt(root, results["jax"])
 
     ckpt = save_checkpoint(root / "ckpt", _port_model(variables), 0)
@@ -159,7 +184,14 @@ def cli_runs(tmp_path_factory):
                                 state=port_model)
     with open(root / "port" / "result.pkl", "rb") as f:
         results["port"] = pickle.load(f)
-    return root, ckpt, port_result, _jax_scored(results["jax"], root), results
+    return root, ckpt, port_result, ref["scored"], results
+
+
+@pytest.mark.slow
+def test_cli_eval_reference_is_regenerated(tmp_path_factory):
+    """The committed ``cli_eval`` reference is what the JAX CLI writes now."""
+    root = _written_sequence(tmp_path_factory)
+    refs.assert_regenerated("cli_eval", jax_cli_reference(root, *jax_weights()))
 
 
 def _pairs(port, ref):
@@ -229,10 +261,11 @@ def test_result_dict_matches_the_jax_cli(cli_runs):
 
 
 def test_outputs_are_written(cli_runs):
+    """The port CLI's outputs; the JAX CLI's were checked when its
+    reference was written (``log_has_rate``)."""
     root = cli_runs[0]
-    for side in ("port", "jax"):
-        assert (root / side / "result.pkl").exists()
-        assert "f/s" in (root / side / "log_eval.txt").read_text()
+    assert (root / "port" / "result.pkl").exists()
+    assert "f/s" in (root / "port" / "log_eval.txt").read_text()
 
 
 def test_eval_all_polls_the_checkpoint_dir(cli_runs, monkeypatch):

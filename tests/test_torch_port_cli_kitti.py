@@ -44,6 +44,7 @@ from cpd_tpu_torch.tools import train as train_cli
 from cpd_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from cpd_tpu_torch.utils.synthetic import write_kitti_frames
 from cpd_tpu_torch.utils.weights import seeded_state_dict, state_dict_from_jax
+from tests import torch_port_refs as refs
 from tests.test_torch_port_build_network import (SCALE_SETS, jax_f32, load_pair,
                                                  pair_detections)
 from tests.test_torch_port_models import jax_nms_with_clip_iou, seeded_jax_variables
@@ -129,7 +130,10 @@ def test_train_cli_runs_the_kitti_yaml(root, tmp_path, monkeypatch):
         assert payload["model_state"][f"backbone.{branch}.conv_input.weight"].shape == (27, 4, 16)
 
 
-def test_predict_on_a_kitti_batch_matches_jax(root):
+def _kitti_pair(root):
+    """The eval batch of the written scans, the JAX model and its seeded
+    variables (a training init on the training batch), and the port model
+    with the same weights."""
     port_cfg, jax_cfg = load_pair(KITTI_YAML, _sets(root) + TRAIN_SETS)  # JAX inits in training
     train_batch = jds.collate_batch([JKitti(jax_cfg.DATA_CONFIG, jax_cfg.CLASS_NAMES, True,
                                             str(root))[i] for i in range(2)])
@@ -149,15 +153,35 @@ def test_predict_on_a_kitti_batch_matches_jax(root):
         pm = build_network(port_cfg.MODEL, len(port_cfg.CLASS_NAMES), port_cfg.DATA_CONFIG)
         pm.load_state_dict(state_dict_from_jax(variables, pm), strict=True)
         pm = set_compute_dtype(pm.eval(), None)
-        jv = jax.tree_util.tree_map(jnp.asarray, variables)
-        jbatch = {"points": jnp.asarray(batch["points"]),
-                  "points_valid": jnp.asarray(batch["points_valid"])}
-        with jax_nms_with_clip_iou():
-            jout = jax.jit(lambda v, b: jm.apply(v, b, False))(jv, jbatch)
-            keep = ("batch_box_preds", "batch_cls_preds", "roi_labels", "roi_valid")
-            jpred = jax.jit(lambda v, o: jm.apply(v, o, method=type(jm).post_processing))(
-                jv, {k: jout[k] for k in keep})
+    return batch, jm, variables, pm
+
+
+def jax_kitti_predict(batch, jm, variables):
+    jv = jax.tree_util.tree_map(jnp.asarray, variables)
+    jbatch = {"points": jnp.asarray(batch["points"]),
+              "points_valid": jnp.asarray(batch["points_valid"])}
+    with jax_f32(), jax_nms_with_clip_iou():
+        jout = jax.jit(lambda v, b: jm.apply(v, b, False))(jv, jbatch)
+        keep = ("batch_box_preds", "batch_cls_preds", "roi_labels", "roi_valid")
+        jpred = jax.jit(lambda v, o: jm.apply(v, o, method=type(jm).post_processing))(
+            jv, {k: jout[k] for k in keep})
     jout, jpred = jax.device_get((jout, jpred))
+    return {"out": {k: jout[k] for k in ("rois", "roi_scores", "roi_valid")},
+            "pred": dict(jpred)}
+
+
+@pytest.mark.slow
+def test_kitti_predict_reference_is_regenerated(root):
+    batch, jm, variables, _ = _kitti_pair(root)
+    refs.assert_regenerated("kitti_predict", jax_kitti_predict(batch, jm, variables))
+
+
+def test_predict_on_a_kitti_batch_matches_jax(root):
+    """The port's predict on the written scans against the JAX side's, the
+    committed reference ``kitti_predict``."""
+    batch, _, _, pm = _kitti_pair(root)
+    ref = refs.load("kitti_predict")
+    jout, jpred = ref["out"], ref["pred"]
     with torch.no_grad():
         pout = pm({"points": torch.from_numpy(batch["points"]),
                    "points_valid": torch.from_numpy(batch["points_valid"])})

@@ -22,6 +22,7 @@ from cpd_tpu.models import roi_head as jroi
 from cpd_tpu_torch.models import backbone3d, center_head, detector, roi_head
 from cpd_tpu_torch.utils.synthetic import make_tiny_train_batch
 from cpd_tpu_torch.utils.weights import state_dict_from_jax
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 PAIRS = {
     "VoxelRCNN": (jdet.VoxelRCNN, detector.VoxelRCNN),

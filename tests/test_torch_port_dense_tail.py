@@ -27,6 +27,7 @@ from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch.ops.gather_gemm import gather_gemm
 from cpd_tpu_torch.utils.weights import state_dict_from_jax
 from tests.test_torch_port_models import _random_sparse, init_pair, seeded_jax_variables
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 GRID = GridSpec(32, 32, 26)
 PGRID = sparse.GridSpec(*GRID)

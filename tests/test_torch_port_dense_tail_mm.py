@@ -11,6 +11,7 @@ from cpd_tpu.models import backbone3d as jbb
 from cpd_tpu_torch.models import backbone3d
 from tests.test_torch_port_dense_tail import CAPS, FILTERS, GRID, PGRID, _f32_close, _t
 from tests.test_torch_port_models import _random_sparse, init_pair
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 
 def test_dense_tail_light_branch_mm():

@@ -12,26 +12,45 @@ from __graft_entry__ import _TINY, _make_batch
 from cpd_tpu.models.detector import VoxelRCNN as JVoxelRCNN
 from cpd_tpu_torch.models.detector import VoxelRCNN
 from cpd_tpu_torch.utils.weights import state_dict_from_jax
+from tests import torch_port_refs as refs
 from tests.test_torch_port_dense_tail import _np
 from tests.test_torch_port_models import bf16_close, jax_nms_with_clip_iou, seeded_jax_variables
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 
-@pytest.fixture(scope="module")
-def predict_pair():
-    """``VoxelRCNN.predict`` with ``dense_tail=True`` in both packages at
-    ``_TINY`` (bf16, the JAX model's only dtype), batch 2, same weights."""
+STAGES = ("x_conv3", "x_conv4", "encoded")
+
+
+def _jax_pair():
     batch = _make_batch(b=2, with_proto=False)
-    points = np.array(batch["points"])
     jm = JVoxelRCNN(**_TINY, mm=False, dense_tail=True)
     jbatch = {"points": batch["points"], "points_valid": batch["points_valid"]}
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jbatch, False))
-    variables = seeded_jax_variables(shapes, 0)
+    return np.array(batch["points"]), jbatch, jm, seeded_jax_variables(shapes, 0)
+
+
+def jax_dense_tail_predict(jm, variables, jbatch):
+    """The JAX eval forward (the tail's stages, the head maps) and its
+    post-processing, jitted, bf16."""
     jv = jax.tree_util.tree_map(jnp.asarray, variables)
     with jax_nms_with_clip_iou():
         jout = jax.jit(lambda v, x: jm.apply(v, x, False))(jv, jbatch)
         keep = ("batch_box_preds", "batch_cls_preds", "roi_labels", "roi_valid")
         jpred = jax.jit(lambda v, o: jm.apply(v, o, method=JVoxelRCNN.post_processing))(
             jv, {k: jout[k] for k in keep})
+    jout, jpred = jax.device_get((jout, jpred))
+    return {"out": {"head_preds": dict(jout["head_preds"]),
+                    "backbone_out": {s: list(jout["backbone_out"][s][:2]) for s in STAGES}},
+            "pred": dict(jpred)}
+
+
+@pytest.fixture(scope="module")
+def predict_pair():
+    """``VoxelRCNN.predict`` with ``dense_tail=True`` in the port at
+    ``_TINY`` (bf16, the JAX model's only dtype), batch 2, against the JAX
+    side's, the committed reference ``dense_tail_predict``."""
+    points, _, _, variables = _jax_pair()
+    ref = refs.load("dense_tail_predict")
     pm = VoxelRCNN(**_TINY, mm=False, dense_tail=True)
     pm.load_state_dict(state_dict_from_jax(variables, pm), strict=True)
     pm.eval()
@@ -40,13 +59,19 @@ def predict_pair():
     with torch.no_grad():
         pout = pm(pbatch)
         ppred = pm.predict(pbatch)
-    return pout, ppred, jout, jpred
+    return pout, ppred, ref["out"], ref["pred"]
+
+
+@pytest.mark.slow
+def test_dense_tail_predict_reference_is_regenerated():
+    _, jbatch, jm, variables = _jax_pair()
+    refs.assert_regenerated("dense_tail_predict", jax_dense_tail_predict(jm, variables, jbatch))
 
 
 @pytest.mark.parametrize("stage", ["x_conv3", "x_conv4", "encoded"])
 def test_predict_dense_tail_backbone_bf16(predict_pair, stage):
     pout, _, jout, _ = predict_pair
-    (pf, pk, _), (jf, jk, _) = pout["backbone_out"][stage], jout["backbone_out"][stage]
+    (pf, pk, _), (jf, jk) = pout["backbone_out"][stage], jout["backbone_out"][stage]
     assert pf.dtype == torch.bfloat16
     np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
     bf16_close(_np(pf), _np(jf), stage)

@@ -12,6 +12,7 @@ from cpd_tpu_torch.models import backbone3d
 from cpd_tpu_torch.utils.weights import grads_to_jax_tree
 from tests.test_torch_port_dense_tail import CAPS, FILTERS, GRID, PGRID, _t
 from tests.test_torch_port_models import _random_sparse, init_pair
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ from cpd_tpu_torch.models import center_head, roi_head
 from cpd_tpu_torch.ops import gaussian
 from cpd_tpu_torch.ops.box_coders import ResidualCoder
 from cpd_tpu_torch.utils import loss as ploss
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -24,6 +24,7 @@ from cpd_tpu.ops.sparse import INVALID_KEY, GridSpec
 from cpd_tpu_torch.models import backbone3d, bev, center_head, norm, roi_head
 from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch.utils.weights import seeded_state_dict, state_dict_from_jax
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=1e-4, atol=1e-4)
 

@@ -26,6 +26,7 @@ from cpd_tpu.ops import sparse as jsparse
 from cpd_tpu.ops import voxelizer as jvox
 from cpd_tpu_torch.ops import box_coders, gaussian, geometry, iou3d, nms, pool, sparse, voxelizer
 from cpd_tpu_torch.ops.gather_gemm import gather_gemm, gather_gemm_reference
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -53,7 +54,7 @@ def _random_boxes(rng, n, spread=6.0):
 
 def test_port_imports_no_jax():
     """Every cpd_tpu_torch module and chip_smoke import without jax, flax,
-    yaml, sklearn or anything of cpd_tpu."""
+    yaml, sklearn, matplotlib or anything of cpd_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cpd_tpu_torch\n"
@@ -61,9 +62,10 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'yaml', 'sklearn', 'cpd_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'yaml', 'sklearn', 'matplotlib',\n"
+        "                              'cpd_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 71, names\n"
+        "assert len(names) >= 77, names\n"
         "assert {'cpd_tpu_torch.utils.loss', 'cpd_tpu_torch.parallel.trainer',\n"
         "        'cpd_tpu_torch.ops.cuda_build', 'cpd_tpu_torch.ops.gather_probes',\n"
         "        'cpd_tpu_torch.probes.gather', 'cpd_tpu_torch.config',\n"
@@ -79,7 +81,10 @@ def test_port_imports_no_jax():
         "        'cpd_tpu_torch.parallel.comm', 'cpd_tpu_torch.utils.collective',\n"
         "        'cpd_tpu_torch.models.centerpoint', 'cpd_tpu_torch.models.temporal',\n"
         "        'cpd_tpu_torch.models.pfe', 'cpd_tpu_torch.models.part_wraper',\n"
-        "        'cpd_tpu_torch.ops.fps'} <= set(names)\n"
+        "        'cpd_tpu_torch.ops.fps', 'cpd_tpu_torch.ops.roipool',\n"
+        "        'cpd_tpu_torch.ops.dcn', 'cpd_tpu_torch.models.atss',\n"
+        "        'cpd_tpu_torch.models.transformer', 'cpd_tpu_torch.models.vector_pool',\n"
+        "        'cpd_tpu_torch.tools.visual_utils'} <= set(names)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -49,6 +49,17 @@ N_SAMPLES = 8
 STRICT_POINTS = 2048  # a sample's points in the strict tier (see the docstring)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def restored_thread_count():
+    """The one-process steps here run torch on one thread; the file gives
+    its worker back the count it found, so that the files after it run as
+    they would alone (tests/test_torch_port_train.py's bf16 tiers do not
+    hold at one thread)."""
+    threads = torch.get_num_threads()
+    yield
+    torch.set_num_threads(threads)
+
+
 def _global_batch(points=STRICT_POINTS):
     return {k: np.array(v) for k, v in ge._make_batch(b=N_SAMPLES, p=points, seed=1).items()}
 

@@ -44,10 +44,11 @@ from cpd_tpu_torch.ops import fps, pool
 from cpd_tpu_torch.ops.sparse import GridSpec
 from cpd_tpu_torch.parallel import trainer
 from cpd_tpu_torch.utils.weights import state_dict_from_jax
+from tests import torch_port_refs as refs
 from tests.test_torch_port_build_network import _np, _scaled_close
 from tests.test_torch_port_models import seeded_jax_variables
-from tests.test_torch_port_registry import (PROPOSAL_KEYS, _t, check_loss_step, jax_forward,
-                                            jax_loss_step, jax_slice_f32, port_loss_step,
+from tests.test_torch_port_registry import (PROPOSAL_KEYS, _t, check_loss_step, jax_loss_step,
+                                            jax_predict, jax_slice_f32, port_loss_step,
                                             slice_batch, slice_pair)
 
 PCR = (-16.0, -16.0, -2.0, 16.0, 16.0, 4.0)
@@ -84,11 +85,11 @@ def test_jax_norm_of_three_values_is_a_chain_of_fused_multiply_adds():
     """``jnp.linalg.norm(d, axis=-1)`` of (N, 3), jitted as in
     ``farthest_point_sample``, is sqrt(fma(z, z, fma(y, y, x*x))) in f32 bit
     for bit on the CPU (XLA contracts the sum of squares), and neither
-    unfused order is: the port's ``norm3`` computes the fused chain."""
+    unfused order is: the port's ``fused_norm`` computes the fused chain."""
     d = np.random.default_rng(0).normal(0.0, 7.0, (20000, 3)).astype(np.float32)
     ref = np.asarray(jax.jit(lambda x: jnp.linalg.norm(x, axis=-1))(jnp.asarray(d)))
     x, y, z = d[:, 0], d[:, 1], d[:, 2]
-    np.testing.assert_array_equal(fps.norm3(_t(d)).numpy(), ref)
+    np.testing.assert_array_equal(fps.fused_norm(_t(d)).numpy(), ref)
     np.testing.assert_array_equal(
         fps._distance(_t(d)[None], torch.zeros(1, 3))[0].numpy(), ref)
     assert (np.sqrt((x * x + y * y) + z * z) != ref).any()
@@ -200,15 +201,22 @@ def test_voxel_set_abstraction_alone_matches_jax():
 @pytest.fixture(scope="module")
 def pfe_slice():
     batch = slice_batch(history=False, seed=4)
+    ref = refs.load("pfe_slice")
     with jax_slice_f32():
         jm, variables, pm = slice_pair(jdet.VoxelRCNN, VoxelRCNN, PFE_KW, batch)
-        jout = jax_forward(jm, variables, batch, PROPOSAL_KEYS + (
-            "point_coords", "point_features", "point_valid"))
-        jv = jax.tree_util.tree_map(jnp.asarray, variables)
-        jpred = jax.device_get(jax.jit(lambda v, o: jm.apply(
-            v, o, method=jdet.VoxelRCNN.post_processing))(jv, jout))
         step = jax_loss_step(jm, variables, batch)
-    return variables, pm, batch, jout, jpred, step
+    return variables, pm, batch, ref["out"], ref["pred"], step
+
+
+@pytest.mark.slow
+def test_pfe_slice_reference_is_regenerated():
+    """The committed ``pfe_slice``: JAX's eval forward and post-processing."""
+    batch = slice_batch(history=False, seed=4)
+    with jax_slice_f32():
+        jm, variables, _ = slice_pair(jdet.VoxelRCNN, VoxelRCNN, PFE_KW, batch)
+        live = jax_predict(jm, variables, batch, PROPOSAL_KEYS + (
+            "point_coords", "point_features", "point_valid"))
+    refs.assert_regenerated("pfe_slice", live)
 
 
 def test_pfe_slice_predict_matches(pfe_slice):

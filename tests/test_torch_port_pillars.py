@@ -36,10 +36,12 @@ from cpd_tpu_torch.models import build_network, pillars
 from cpd_tpu_torch.ops import voxelizer
 from cpd_tpu_torch.ops.sparse import GridSpec
 from cpd_tpu_torch.utils.weights import state_dict_from_jax
+from tests import torch_port_refs as refs
 from tests.test_torch_port_anchor import jax_anchors_eager
 from tests.test_torch_port_build_network import (_np, _scaled_close, frames_batch, jax_f32,
                                                  load_pair, pair_detections, seeded_pair)
 from tests.test_torch_port_models import jax_nms_with_clip_iou, seeded_jax_variables
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 YAML = "tools/cfgs/models/pointpillar_dbscan_single_train.yaml"
 R = 12.8
@@ -169,9 +171,7 @@ def pillar_pair():
     return jm, variables, pm
 
 
-def test_pillar_predict_matches(pillar_pair):
-    jm, variables, pm = pillar_pair
-    pts, valid = frames_batch(2)
+def jax_pillar_predict(jm, variables, pts, valid):
     jv = jax.tree_util.tree_map(jnp.asarray, variables)
     jbatch = {"points": jnp.asarray(pts), "points_valid": jnp.asarray(valid)}
     with jax_f32(), jax_nms_with_clip_iou():
@@ -180,6 +180,16 @@ def test_pillar_predict_matches(pillar_pair):
         jpred = jax.jit(lambda v, o: jm.apply(v, o, method=type(jm).post_processing))(
             jv, {k: jout[k] for k in keep})
     jout, jpred = jax.device_get((jout, jpred))
+    return {"out": {k: jout[k] for k in keep}, "pred": dict(jpred)}
+
+
+def test_pillar_predict_matches(pillar_pair):
+    """Against the JAX side's predict, the committed reference ``pillars``."""
+    _, _, pm = pillar_pair
+    pts, valid = frames_batch(2)
+    ref = refs.load("pillars")["predict"]
+    jout, jpred = ref["out"], ref["pred"]
+    keep = ("rois", "roi_scores", "roi_labels", "roi_valid")
     with torch.no_grad():
         pout = pm({"points": _t(pts), "points_valid": _t(valid)})
         ppred = pm.post_processing(pout)
@@ -201,9 +211,7 @@ def test_pillar_predict_matches(pillar_pair):
     assert n > 40
 
 
-def test_pillar_loss_step_matches(pillar_pair):
-    jm, variables, pm = pillar_pair
-    pm = copy.deepcopy(pm)  # the step moves the running statistics
+def pillar_loss_batch():
     pts, valid = frames_batch(2, seed=1)
     rng = np.random.default_rng(3)
     gt = np.zeros((2, 16, 8), np.float32)
@@ -214,12 +222,35 @@ def test_pillar_loss_step_matches(pillar_pair):
     gt[..., 3:6] = sizes[gt[..., 7].astype(int) - 1] * rng.uniform(0.8, 1.2, (2, 16, 3))
     gt[..., 6] = rng.uniform(-np.pi, np.pi, (2, 16))
     gv = np.arange(16)[None] < np.array([[12], [9]])
-    batch = {"points": pts, "points_valid": valid, "gt_boxes": gt, "gt_valid": gv}
+    return {"points": pts, "points_valid": valid, "gt_boxes": gt, "gt_valid": gv}
+
+
+def jax_pillar_loss_step(jm, variables, batch):
     jv = jax.tree_util.tree_map(jnp.asarray, variables)
     with jax_f32(), jax_nms_with_clip_iou(), jax_anchors_eager():
-        (jtotal, jtb), jstats = jax.jit(lambda v, b: jm.apply(
+        (jtotal, jtb), jstats = jax.device_get(jax.jit(lambda v, b: jm.apply(
             v, b, method=type(jm).loss_step, mutable=["batch_stats"]))(
-            jv, {k: jnp.asarray(v) for k, v in batch.items()})
+            jv, {k: jnp.asarray(v) for k, v in batch.items()}))
+    return {"total": jtotal, "tb": dict(jtb),
+            "vfe_bn": dict(jstats["batch_stats"]["vfe"]["MaskedBatchNorm_0"])}
+
+
+@pytest.mark.slow
+def test_pillars_reference_is_regenerated(pillar_pair):
+    jm, variables, _ = pillar_pair
+    live = {"predict": jax_pillar_predict(jm, variables, *frames_batch(2)),
+            "loss_step": jax_pillar_loss_step(jm, variables, pillar_loss_batch())}
+    refs.assert_regenerated("pillars", live)
+
+
+def test_pillar_loss_step_matches(pillar_pair):
+    """Against the JAX side's training forward, the committed ``pillars``."""
+    _, _, pm = pillar_pair
+    pm = copy.deepcopy(pm)  # the step moves the running statistics
+    batch = pillar_loss_batch()
+    ref = refs.load("pillars")["loss_step"]
+    jtotal, jtb = ref["total"], ref["tb"]
+    jstats = {"batch_stats": {"vfe": {"MaskedBatchNorm_0": ref["vfe_bn"]}}}
     ptotal, ptb = pm.train().loss_step({k: _t(v) for k, v in batch.items()})
     assert set(ptb) == set(jtb) == {"rpn_cls", "rpn_reg", "rpn_dir", "rpn_loss", "total_loss"}
     for k in jtb:

@@ -31,7 +31,9 @@ from cpd_tpu_torch.models import backbone3d
 from cpd_tpu_torch.models.detector import VoxelRCNN, keys_from_frame
 from cpd_tpu_torch.ops import voxelizer
 from cpd_tpu_torch.utils.weights import state_dict_from_jax
+from tests import torch_port_refs as refs
 from tests.test_torch_port_models import bf16_close, jax_nms_with_clip_iou, seeded_jax_variables
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 
 def _np(x):
@@ -40,20 +42,41 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-@pytest.fixture(scope="module")
-def slice_pair():
+STAGES = ("x_conv1", "x_conv2", "x_conv3", "x_conv4", "encoded")
+PROPOSAL_KEYS = ("rois", "roi_scores", "roi_labels", "roi_valid")
+
+
+def _jax_pair():
     batch = _make_batch(b=2, with_proto=False)
-    points = np.array(batch["points"])
     jm = JVoxelRCNN(**_TINY, mm=False)
     jbatch = {"points": batch["points"], "points_valid": batch["points_valid"]}
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jbatch, False))
-    variables = seeded_jax_variables(shapes, 0)
+    return np.array(batch["points"]), jbatch, jm, seeded_jax_variables(shapes, 0)
+
+
+def jax_predict(jm, variables, jbatch):
+    """The JAX eval forward (each stage's features and keys, the head maps,
+    the proposals) and its post-processing, jitted, bf16 as JAX runs."""
     jv = jax.tree_util.tree_map(jnp.asarray, variables)
     with jax_nms_with_clip_iou():
         jout = jax.jit(lambda v, x: jm.apply(v, x, False))(jv, jbatch)
         keep = ("batch_box_preds", "batch_cls_preds", "roi_labels", "roi_valid")
         jpred = jax.jit(lambda v, o: jm.apply(v, o, method=JVoxelRCNN.post_processing))(
             jv, {k: jout[k] for k in keep})
+    jout, jpred = jax.device_get((jout, jpred))
+    out = {k: jout[k] for k in PROPOSAL_KEYS}
+    out["head_preds"] = dict(jout["head_preds"])
+    out["backbone_out"] = {s: list(jout["backbone_out"][s][:2]) for s in STAGES}
+    return {"out": out, "pred": dict(jpred)}
+
+
+@pytest.fixture(scope="module")
+def slice_pair():
+    """The port's predict on the tiny batch, and the JAX side's, the
+    committed reference ``predict_tiny``."""
+    points, _, jm, variables = _jax_pair()
+    ref = refs.load("predict_tiny")
+    jout, jpred = ref["out"], ref["pred"]
     pm = VoxelRCNN(**_TINY, mm=False)
     pm.load_state_dict(state_dict_from_jax(variables, pm), strict=True)
     pm.eval()
@@ -63,6 +86,12 @@ def slice_pair():
         pout = pm(pbatch)
         ppred = pm.post_processing(pout)
     return points, pm, pout, ppred, jm, jout, jpred
+
+
+@pytest.mark.slow
+def test_predict_tiny_reference_is_regenerated():
+    _, jbatch, jm, variables = _jax_pair()
+    refs.assert_regenerated("predict_tiny", jax_predict(jm, variables, jbatch))
 
 
 def _pairs(port_boxes, port_valid, ref_boxes, ref_valid, tol):
@@ -110,7 +139,7 @@ def test_predict_integer_stages_exact(slice_pair):
 def test_predict_backbone_bf16(slice_pair, stage):
     _, _, pout, _, _, jout, _ = slice_pair
     pf, pk, _ = pout["backbone_out"][stage]
-    jf, jk, _ = jout["backbone_out"][stage]
+    jf, jk = jout["backbone_out"][stage]
     assert pf.dtype == torch.bfloat16 and jf.dtype == jnp.bfloat16
     np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
     bf16_close(_np(pf), _np(jf), stage)

@@ -47,6 +47,7 @@ from cpd_tpu_torch.models.detector import VoxelRCNN, set_compute_dtype
 from cpd_tpu_torch.ops.sparse import GridSpec
 from cpd_tpu_torch.utils.synthetic import make_tiny_train_batch
 from cpd_tpu_torch.utils.weights import grads_to_jax_tree, state_dict_from_jax
+from tests import torch_port_refs as refs
 from tests.test_torch_port_build_network import (SCALE_SETS, SHIPPED, _F32BEV, _F32Backbone,
                                                  _F32CenterHead, _np, _scaled_close, jax_f32,
                                                  load_pair)
@@ -460,20 +461,39 @@ def test_unknown_registry_names_raise_as_in_jax():
 # ---- the slice as a whole --------------------------------------------------
 
 
+def jax_predict(jm, variables, batch, keep):
+    """The JAX model's eval forward (the entries ``keep``) and its
+    post-processing of that forward, both jitted: a slice's reference."""
+    jout = jax_forward(jm, variables, batch, keep)
+    jv = jax.tree_util.tree_map(jnp.asarray, variables)
+    jpred = jax.device_get(jax.jit(lambda v, o: jm.apply(
+        v, o, method=type(jm).post_processing))(jv, jout))
+    return {"out": jout, "pred": dict(jpred)}
+
+
+VOXEL_SLICE_KEEP = PROPOSAL_KEYS + ("wrap_conf", "wrap_boxes")
+
+
 @pytest.fixture(scope="module")
 def voxel_slice():
-    """VoxelBackBone8x + ConvGRU over one history frame + PartWraper, f32,
-    and the JAX side's eval forward and training step, once."""
+    """VoxelBackBone8x + ConvGRU over one history frame + PartWraper, f32:
+    the JAX side's eval forward is the committed reference
+    ``registry_voxel_slice``; its training step runs here, once."""
     batch = slice_batch()
+    ref = refs.load("registry_voxel_slice")
     with jax_slice_f32():
         jm, variables, pm = slice_pair(jdet.VoxelRCNN, VoxelRCNN, SLICE_KW, batch)
-        keep = PROPOSAL_KEYS + ("wrap_conf", "wrap_boxes")
-        jout = jax_forward(jm, variables, batch, keep)
-        jv = jax.tree_util.tree_map(jnp.asarray, variables)
-        jpred = jax.device_get(jax.jit(lambda v, o: jm.apply(
-            v, o, method=jdet.VoxelRCNN.post_processing))(jv, jout))
         step = jax_loss_step(jm, variables, batch)
-    return jm, variables, pm, batch, jout, jpred, step
+    return jm, variables, pm, batch, ref["out"], ref["pred"], step
+
+
+@pytest.mark.slow
+def test_registry_voxel_slice_reference_is_regenerated():
+    batch = slice_batch()
+    with jax_slice_f32():
+        jm, variables, _ = slice_pair(jdet.VoxelRCNN, VoxelRCNN, SLICE_KW, batch)
+        live = jax_predict(jm, variables, batch, VOXEL_SLICE_KEEP)
+    refs.assert_regenerated("registry_voxel_slice", live)
 
 
 def test_voxel_slice_predict_matches(voxel_slice):

@@ -27,6 +27,7 @@ from cpd_tpu_torch.parallel import init_state
 from cpd_tpu_torch.tools import merge_detections, strip_checkpoint
 from cpd_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from tests.test_torch_port_models import jax_nms_with_clip_iou
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 NAMES = np.array(["Vehicle", "Pedestrian", "Cyclist"])

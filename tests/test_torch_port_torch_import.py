@@ -34,6 +34,7 @@ from cpd_tpu_torch.utils import torch_import as pti
 from cpd_tpu_torch.utils.checkpoint import load_torch_checkpoint
 from cpd_tpu_torch.utils.weights import state_dict_from_jax
 from tests.test_torch_port_models import seeded_jax_variables
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -24,6 +24,7 @@ from cpd_tpu_torch.models import backbone3d, bev, center_head, roi_head
 from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch.utils.weights import grads_to_jax_tree, state_dict_from_jax
 from tests.test_torch_port_models import _random_sparse, seeded_jax_variables
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 GRID = GridSpec(32, 32, 26)
 CAPS = (512, 256, 160, 160)

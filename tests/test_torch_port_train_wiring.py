@@ -11,6 +11,7 @@ import torch
 from cpd_tpu_torch.utils.weights import grads_to_jax_tree, state_dict_from_jax
 from tests.test_torch_port_losses import port_uniforms
 from tests.test_torch_port_train import KW, _leaves, port_setup
+from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
