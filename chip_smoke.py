@@ -4,6 +4,7 @@
     python3 chip_smoke.py --determinism RUNS [--no-cudnn]   # phase 13 alone
     python3 chip_smoke.py --registry                        # phase 18 alone
     python3 chip_smoke.py --ops                             # phase 19 alone
+    python3 chip_smoke.py --parity                          # phases 20 and 21 alone
 
 Drives the port's paths at the bench configuration of the JAX package
 (bench.py: 3 classes, range +-75.2 x [-2, 4] m, voxels (0.1, 0.1, 0.15) m,
@@ -241,6 +242,31 @@ raising on failure:
     at full size with its median ms and peak memory; no kernel of its own
     (the sparse conv launches A1, counted), so no kernels-line entry.
     ``--ops`` runs the build and this phase alone.
+20. parity against the JAX package (``parity_phase``, right after 7): the
+    f32 ``predict`` (TF32 off) of the bench configuration with both tails,
+    on the committed reference's frame and weights
+    (tests/torch_port_refs/bench_predict.npz: ``seeded_state_dict`` with
+    its scaled output layers and calibrated norm statistics put over it),
+    held to the jitted JAX predict it stores (``cpd_tpu_torch.utils.parity``):
+    keys exact at every stage, features, head maps and RoIs within 1e-4 of
+    scale, RoI labels exact, detections paired by box, the same count and
+    labels, each pair within 1e-4 of scale and its score within 1e-3; a miss
+    raises with the first differing key or the worst row; each tail's A1
+    launches (15 and 21);
+21. training with the dense tail (``dense_training_phase``, right after
+    11): phase 11's batch, labels and weights with ``dense_tail=True``: one
+    step at f32 against the sparse tail's on the same proposals, with the
+    heads' output layers scaled by 0.05 (the loss within rtol 1e-4, as
+    tests/test_torch_port_dense_tail_train.py holds the two tails; the
+    gradients' worst leaf, cosine and norm ratio within 4 times those that
+    the sparse tail's own order of summation gives: its step on the plain
+    versions of A1 and A2; no fixed tier holds every leaf of a whole
+    detector's step, where the sparse tail moves a leaf by up to 1.5e-2 of
+    its module's scale against itself), A1 forward, A1 as
+    dX and A2 against their plain versions on one bf16 step's operands, the
+    trainer's first step launching (26, 24, 26) and no A2 in its forward,
+    finite losses, then timed steps: ms, device busy ms, idle share, peak
+    memory. ``--parity`` runs the build and phases 20 and 21 alone.
 
 The last two lines of stdout are the card line and a JSON object; the line
 before them is the kernels JSON. For each use of A1 and A2 it gives the
@@ -322,6 +348,7 @@ from cpd_tpu_torch.tools.strip_checkpoint import strip_checkpoint
 from cpd_tpu_torch.tools.train import device_batch
 from cpd_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from cpd_tpu_torch.utils.common import PhaseTimer
+from cpd_tpu_torch.utils import parity
 from cpd_tpu_torch.utils.device import place
 from cpd_tpu_torch.utils.yaml_subset import load_file
 from cpd_tpu_torch.datasets import waymo_unsupervised as builder
@@ -368,6 +395,21 @@ PROBE_TILE = 256  # rows per tile of G4's output layout on the layer shapes
 # 1 has 14 (one block at stages 2-4, no conv_out); every conv has a dW, and
 # every conv but the two conv_input (voxel features are data) a dX
 TRAIN_A1_FORWARD, TRAIN_A1_DX, TRAIN_A2 = 35, 33, 35
+# the same step with the dense tail: stage 4 (and branch 0's conv_out) run as
+# dense conv3d, which leaves branch 0 conv_input + 4, down2 + 4, down3 + 4 (15)
+# and branch 1 conv_input + 4, down2 + 2, down3 + 2 (11) sparse convs
+DENSE_TRAIN_A1_FORWARD, DENSE_TRAIN_A1_DX, DENSE_TRAIN_A2 = 26, 24, 26
+# phase 21's gate: the loss within rtol 1e-4 (as tests/test_torch_port_dense_tail_train.py
+# holds the two tails), and the gradients no further from the sparse tail's
+# than 4 times what the sparse tail's own order of summation moves them
+DENSE_TRAIN_LOSS_RTOL, DENSE_TRAIN_NOISE_FACTOR = 1e-4, 4.0
+# the f32 gate's weights: phase 11's with the heads' output layers scaled, as
+# the parity reference's (tests/test_torch_port_bench_parity.py): seeded, the
+# heatmap saturates into the focal loss's clamp, whose kinks make the
+# gradient a function of rounding
+GATE_OUTPUT_SCALE = 0.05
+DENSE_TRAIN_TIMED = 3
+BENCH_REFERENCE = "tests/torch_port_refs/bench_predict.npz"
 TRAIN_BATCH = 2
 HBM_BYTES_PER_S = 3.35e12
 SPIN_CYCLES = 600_000  # about 0.3 ms of torch.cuda._sleep ahead of a timed call
@@ -958,7 +1000,7 @@ def training_phase(dev):
     print(f"train step phases ms (between CUDA events of the {TIMED_LOOPS} timed steps, medians): "
           + ", ".join(f"{k} {v:.2f}" for k, v in phases.items()))
     device_profile(lambda: train_step(state, batch, generator), "train step",
-                   statistics.median(ms), loops=2)
+                   statistics.median(ms), loops=1)
 
     src1, src2 = "cpd_tpu_torch/csrc/gather_gemm.cu", "cpd_tpu_torch/csrc/gather_gemm_dw.cu"
     return [
@@ -967,6 +1009,139 @@ def training_phase(dev):
         kernel_entry("gather_gemm (dX)", "train step, backward", src1,
                      "cpd_tpu/ops/pallas_conv.py:77", a1_total - forward_launches, *checks["dx"]),
         kernel_entry("gather_gemm_dw", "train step, backward", src2,
+                     "cpd_tpu/ops/pallas_conv.py:130", a2_launches, *checks["dw"]),
+    ]
+
+
+@contextlib.contextmanager
+def computing_in_f32(model):
+    """``model`` computes in f32 inside the scope (TF32 is off), in its own
+    compute dtypes after it."""
+    saved = [(m, m.compute_dtype) for m in model.modules() if hasattr(m, "compute_dtype")]
+    set_compute_dtype(model, None)
+    try:
+        yield model
+    finally:
+        for m, dtype in saved:
+            m.compute_dtype = dtype
+
+
+def dense_training_phase(dev, card):
+    """Phase 21: the training step with the dense tail (``dense_tail=True``,
+    ``mm=True``, batch 2, bf16 as the model ships), on the batch, labels and
+    weights of phase 11's sparse-tail step. Gates: (a) one step at f32
+    against the sparse tail's on the same proposals (the heads' output layers
+    scaled by ``GATE_OUTPUT_SCALE``): the loss within rtol 1e-4, and the
+    gradients' worst leaf (over its module's scale), 1 - cosine and norm
+    ratio each within 4 times those of the sparse tail on the plain versions
+    of A1 and A2 (reordering alone); (b) A1 forward, A1
+    as dX and A2 against their plain versions on one step's operands; (c)
+    the trainer's first step launches (26, 24, 26) and none of A2 in its
+    forward; finite losses, no skipped step. Prints the step's ms, device
+    busy ms and idle share, and peak memory. Returns the kernels-line
+    entries of its three kernel uses."""
+    t0 = time.perf_counter()
+    cfg = dict(BENCH, mm=True)
+    sparse_model = VoxelRCNN(**cfg)
+    sparse_model.load_state_dict(seeded_state_dict(sparse_model, 0), strict=True)
+    sparse_model = place(sparse_model, dev)
+    raw = to_device(make_train_batch(0, TRAIN_BATCH, N_POINTS), dev)
+    batch, matched = labels_on_proposals(sparse_model, raw, n_labelled=40)
+    trained = {k: v.clone() for k, v in sparse_model.state_dict().items()}
+    # the gate's weights and labels, placed on the scaled model's own proposals
+    sparse_model.load_state_dict({k: v * GATE_OUTPUT_SCALE if k.endswith(".out.weight") else v
+                                  for k, v in trained.items()}, strict=True)
+    gate_batch, _ = labels_on_proposals(sparse_model, raw, n_labelled=40)
+    model = place(VoxelRCNN(**dict(cfg, dense_tail=True)), dev)
+    model.load_state_dict(sparse_model.state_dict(), strict=True)
+    t_gate = time.perf_counter()
+    t_setup = t_gate - t0
+    with computing_in_f32(sparse_model), computing_in_f32(model):
+        loss_s, _, grads_s, props = parity.loss_and_gradients(sparse_model, gate_batch, 0)
+        loss_d, tb_d, grads_d, _ = parity.loss_and_gradients(model, gate_batch, 0, props)
+        with parity.plain_sparse_convs():  # the sparse tail in another order of summation
+            _, _, grads_p, _ = parity.loss_and_gradients(sparse_model, gate_batch, 0, props)
+    torch.cuda.synchronize()
+    t_gate = time.perf_counter() - t_gate
+    rel = abs(loss_d - loss_s) / max(abs(loss_s), 1e-12)
+    lines, misses = parity.compare_gradients(grads_d, grads_s,
+                                             parity.gradient_errors(grads_p, grads_s),
+                                             DENSE_TRAIN_NOISE_FACTOR)
+    print(f"dense-tail step against the sparse tail at f32 on the same proposals: loss "
+          f"{loss_d:.6f} against {loss_s:.6f} (rel {rel:.2e}); {lines[0]}", flush=True)
+    gate = None  # raised after the timed steps, so that one run reports them too
+    if not rel <= DENSE_TRAIN_LOSS_RTOL or misses or not float(tb_d["rcnn_reg0"]) > 0:
+        gate = (f"dense-tail step against the sparse tail: loss rel {rel:.2e} (rcnn_reg0 "
+                f"{tb_d['rcnn_reg0']}); " + "; ".join(misses))
+    del sparse_model, grads_s, grads_d, grads_p, props, gate_batch, raw
+    model.load_state_dict(trained, strict=True)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    generator = torch.Generator(device=dev).manual_seed(0)
+    want = (DENSE_TRAIN_A1_FORWARD, DENSE_TRAIN_A1_DX, DENSE_TRAIN_A2)
+    t_checks = time.perf_counter()
+    checks = train_kernel_checks(model, batch, generator, want=want)
+    t_checks = time.perf_counter() - t_checks
+
+    state = init_state(model, OPT_CFG, total_steps=100, device=dev)
+    train_step = make_train_step()
+    with StepMarks(state) as marks:
+        a1.gather_gemm.launches = a1.gather_gemm_dw.launches = 0
+        state, tb = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        a1_total, a2_launches = a1.gather_gemm.launches, a1.gather_gemm_dw.launches
+        forward_launches, a2_in_forward = marks.rows[0]["forward_launches"]
+        got = (forward_launches, a1_total - forward_launches, a2_launches, a2_in_forward)
+        if got != want + (0,):
+            raise AssertionError(f"the dense-tail train step launched (A1 forward, A1 dX, A2, "
+                                 f"A2 in the forward) = {got}, want {want + (0,)}")
+        first_loss = float(tb["total_loss"])
+        state, tb = train_step(state, batch, generator)  # second warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_s, skipped = [], 0.0
+        for _ in range(DENSE_TRAIN_TIMED):
+            t1 = time.perf_counter()
+            state, tb = train_step(state, batch, generator)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            skipped += float(tb["skipped_nonfinite"])
+            bad = [k for k, v in tb.items() if not math.isfinite(float(v))]
+            if bad or not math.isfinite(first_loss):
+                raise AssertionError(f"dense-tail step {state.step}: non-finite {bad}, first "
+                                     f"loss {first_loss}")
+        peak = torch.cuda.max_memory_allocated()
+        phases = marks.phase_ms(marks.rows[-DENSE_TRAIN_TIMED:])
+    if skipped or "proto_loss" not in tb:
+        raise AssertionError(f"dense-tail steps: skipped {skipped}, proto_loss in tb "
+                             f"{'proto_loss' in tb}")
+    ms = sorted(s * 1e3 for s in step_s)
+    t_profile = time.perf_counter()
+    busy, idle = device_profile(lambda: train_step(state, batch, generator),
+                                "train step (dense tail)", statistics.median(ms), loops=1)
+    t_profile = time.perf_counter() - t_profile
+    print(f"dense-tail train step ({TRAIN_BATCH} frames, {matched} labels a sample): launches "
+          f"(A1 forward, A1 dX, A2) {want}; ms over {DENSE_TRAIN_TIMED} steps median "
+          f"{statistics.median(ms):.2f} min {ms[0]:.2f} max {ms[-1]:.2f}; busy {busy:.2f} ms, "
+          f"idle share {idle:.3f}; peak memory {peak / 2**30:.2f} GiB; total loss first "
+          f"{first_loss:.4f} last {float(tb['total_loss']):.4f}; phases "
+          + ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
+          + f"; {time.perf_counter() - t0:.1f} s, of it set-up {t_setup:.1f} s, the f32 gate "
+          f"{t_gate:.1f} s, the kernel checks {t_checks:.1f} s, the profile {t_profile:.1f} s "
+          f"({card})", flush=True)
+    del state, model, batch
+    torch.cuda.empty_cache()
+    if gate:
+        raise AssertionError(gate)
+    src1, src2 = "cpd_tpu_torch/csrc/gather_gemm.cu", "cpd_tpu_torch/csrc/gather_gemm_dw.cu"
+    return [
+        kernel_entry("gather_gemm", "train step (dense tail), forward", src1,
+                     "cpd_tpu/ops/pallas_conv.py:77", forward_launches, *checks["forward"]),
+        kernel_entry("gather_gemm (dX)", "train step (dense tail), backward", src1,
+                     "cpd_tpu/ops/pallas_conv.py:77", a1_total - forward_launches,
+                     *checks["dx"]),
+        kernel_entry("gather_gemm_dw", "train step (dense tail), backward", src2,
                      "cpd_tpu/ops/pallas_conv.py:130", a2_launches, *checks["dw"]),
     ]
 
@@ -1494,6 +1669,48 @@ def compare_tails(sparse_model, dense_model, batch):
           f"difference {diff:.4f}; detections kept by each run's own predict: {kept}")
     if diff > 0.05:
         raise AssertionError(f"dense and sparse tail disagree in their final scores: {diff}")
+
+
+def parity_phase(dev, card):
+    """Phase 20: the f32 predict at the bench configuration, with both tails,
+    held to the JAX package's committed reference (``BENCH_REFERENCE``,
+    ``cpd_tpu_torch.utils.parity``): the reference's weights over the seeded
+    ones, its frame, TF32 off; keys exact at every stage, features, head maps
+    and RoIs within 1e-4 of scale, RoI labels exact, detections paired by box
+    with the same count and labels, every pair within 1e-4 of scale and its
+    score within 1e-3. A miss raises with the first differing key or the
+    worst row. Prints each tail's A1 launches."""
+    t0 = time.perf_counter()
+    ref = parity.load_reference(Path(__file__).resolve().parent / BENCH_REFERENCE)
+    meta = ref["meta"]
+    pts, valid = make_lidar_frame(np.random.default_rng(int(meta["frame_seed"])),
+                                  int(meta["n_points"]))
+    batch = {"points": torch.from_numpy(pts)[None].to(dev),
+             "points_valid": torch.from_numpy(valid)[None].to(dev)}
+    launches = {}
+    for dense in (True, False):
+        tail = "dense" if dense else "sparse"
+        model = VoxelRCNN(**dict(BENCH, dense_tail=dense))
+        model.load_state_dict(parity.reference_state_dict(model, ref), strict=True)
+        model = set_compute_dtype(place(model.eval(), dev), None)
+        a1.gather_gemm.launches = 0
+        with torch.no_grad():
+            out = model(batch)
+            pred = model.post_processing(out)
+        torch.cuda.synchronize()
+        launches[tail] = a1.gather_gemm.launches
+        lines, misses = parity.compare(parity.record(out, pred), ref)
+        for line in lines:
+            print(f"parity against JAX, {tail} tail: {line}")
+        if misses:
+            raise AssertionError(f"the {tail} tail's f32 predict differs from the JAX "
+                                 f"reference:\n" + "\n".join(misses))
+        if launches[tail] != A1_PER_FORWARD[dense]:
+            raise AssertionError(f"parity, {tail} tail: A1 launched {launches[tail]} times, "
+                                 f"want {A1_PER_FORWARD[dense]}")
+        del model, out, pred
+    print(f"parity against JAX: both tails within the tiers; A1 launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
 
 
 class LogLines(logging.Handler):
@@ -4099,6 +4316,9 @@ def main():
                         help="run only phase 18 (after the build) and print its kernels line")
     parser.add_argument("--ops", action="store_true",
                         help="run only phase 19, the toolbox modules (after the build)")
+    parser.add_argument("--parity", action="store_true",
+                        help="run only phases 20 (bench-scale parity against the committed JAX "
+                             "reference) and 21 (dense-tail training), after the build")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -4127,6 +4347,11 @@ def main():
         return
     if args.ops:
         ops_phase(dev, card)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.parity:
+        parity_phase(dev, card)
+        print(json.dumps({"kernels": dense_training_phase(dev, card)}))
         print(f"total {time.perf_counter() - t_start:.1f} s")
         return
     kernel_resource_lines()
@@ -4164,6 +4389,7 @@ def main():
     torch.cuda.empty_cache()
 
     small_input_check()
+    parity_phase(dev, card)
     print(f"predict phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels.append(eval_cli_phase(dev, card))
     torch.cuda.empty_cache()
@@ -4183,6 +4409,7 @@ def main():
     torch.cuda.empty_cache()
 
     kernels += training_phase(dev)
+    kernels += dense_training_phase(dev, card)
     kernels += probe_entries
     small_train_check(torch.float32)
     small_train_check(torch.bfloat16)

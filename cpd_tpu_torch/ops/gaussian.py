@@ -47,13 +47,17 @@ def assign_center_targets(gt_boxes, gt_valid, num_classes: int, feature_map_size
     (N_max,) flat HW index (int64), mask (N_max,)."""
     h, w = feature_map_size
     n_max = gt_boxes.shape[0]
-    sx = voxel_size[0] * feature_map_stride
-    sy = voxel_size[1] * feature_map_stride
-    cx = (gt_boxes[:, 0] - point_cloud_range[0]) / sx
-    cy = (gt_boxes[:, 1] - point_cloud_range[1]) / sy
+    # the JAX package's assign_center_targets is jitted, and XLA rewrites its
+    # divisions by the constant pixel size as products with the f32
+    # reciprocal: a centre within an ulp of a pixel edge takes the pixel (and
+    # a radius the integer) that the product gives
+    inv_sx, inv_sy = (1.0 / torch.tensor(voxel_size[i] * feature_map_stride, dtype=gt_boxes.dtype,
+                                         device=gt_boxes.device) for i in (0, 1))
+    cx = (gt_boxes[:, 0] - point_cloud_range[0]) * inv_sx
+    cy = (gt_boxes[:, 1] - point_cloud_range[1]) * inv_sy
     valid = (gt_valid & (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
              & (gt_boxes[:, 3] > 0) & (gt_boxes[:, 4] > 0))
-    radius = gaussian_radius(gt_boxes[:, 4] / sy, gt_boxes[:, 3] / sx, gaussian_overlap)
+    radius = gaussian_radius(gt_boxes[:, 4] * inv_sy, gt_boxes[:, 3] * inv_sx, gaussian_overlap)
     radius = torch.clamp(torch.floor(radius), min=min_radius)
     heat = _render_gaussian(cx, cy, radius, (h, w))
     heat = torch.where(valid[:, None, None], heat, 0.0).reshape(n_max, h * w)

@@ -67,6 +67,14 @@ def _top_k(score, k: int):
     return top[..., :k], sel[..., :k]
 
 
+def query_cells(query_xyz, pcr, vs):
+    """floor((q - pcr) / vs) as the jitted JAX query computes it: XLA rewrites
+    the division by the constant cell size as a product with its f32
+    reciprocal, and a query within an ulp of a cell face lands in the cell
+    that the product gives."""
+    return torch.floor((query_xyz - pcr) * (1.0 / vs))
+
+
 def voxel_query(query_xyz, voxel_keys, grid: GridSpec, voxel_size, point_cloud_range,
                 downsample: int, query_range: Tuple[int, int, int], radius: float,
                 nsample: int):
@@ -82,7 +90,7 @@ def voxel_query(query_xyz, voxel_keys, grid: GridSpec, voxel_size, point_cloud_r
     dev = query_xyz.device
     vs = torch.tensor(voxel_size, dtype=torch.float32, device=dev) * downsample
     pcr = torch.tensor(point_cloud_range[:3], dtype=torch.float32, device=dev)
-    qc = torch.floor((query_xyz - pcr) / vs).to(torch.int64)  # (Q, 3) xyz
+    qc = query_cells(query_xyz, pcr, vs).to(torch.int64)  # (Q, 3) xyz
     offs = torch.tensor(_window_offsets(query_range), dtype=torch.int64, device=dev)
     nc = qc.flip(-1)[:, None, :] + offs[None]  # (Q, W, 3) zyx
     in_bounds = ((nc[..., 2] >= 0) & (nc[..., 2] < grid.nx) & (nc[..., 1] >= 0)
@@ -112,7 +120,7 @@ def voxel_query_fast(query_xyz, voxel_keys, grid: GridSpec, voxel_size, point_cl
                                       downsample, query_range, radius, nsample)
     vs = torch.tensor(voxel_size, dtype=torch.float32, device=query_xyz.device) * downsample
     pcr = torch.tensor(point_cloud_range[:3], dtype=torch.float32, device=query_xyz.device)
-    qc = torch.floor((query_xyz - pcr) / vs)
+    qc = query_cells(query_xyz, pcr, vs)
     size = torch.tensor((grid.nx, grid.ny, grid.nz), dtype=torch.float32, device=qc.device)
     in_grid = ((qc >= 0) & (qc < size)).all(dim=-1)
     return idx, valid & in_grid[:, None], centers
@@ -134,7 +142,7 @@ def voxel_query_multi(query_xyz, voxel_keys, grid: GridSpec, voxel_size, point_c
     dev = query_xyz.device
     vs = torch.tensor(voxel_size, dtype=torch.float32, device=dev) * downsample
     pcr = torch.tensor(point_cloud_range[:3], dtype=torch.float32, device=dev)
-    qc = torch.floor((query_xyz - pcr) / vs).to(torch.int64)  # (Q, 3) xyz
+    qc = query_cells(query_xyz, pcr, vs).to(torch.int64)  # (Q, 3) xyz
     vs_eff = tuple(float(x) * downsample for x in voxel_size)
     union_list, prefix_len = [], {}
     for rr in sorted(set(radii)):

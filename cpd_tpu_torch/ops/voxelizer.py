@@ -50,7 +50,12 @@ def compute_voxel_keys(points, spec: VoxelizerSpec, valid=None):
     pcr = torch.tensor(spec.point_cloud_range, dtype=points.dtype, device=points.device)
     vs = torch.tensor(spec.voxel_size, dtype=points.dtype, device=points.device)
     nx, ny, nz = spec.grid_size
-    ijk = torch.floor((points[:, :3] - pcr[:3]) / vs).to(torch.int32)  # xyz
+    # the JAX package runs this under jit, where XLA rewrites the division by
+    # the constant voxel size as a product with its reciprocal (rounded to the
+    # points' dtype once): a point within an ulp of a voxel face falls in
+    # another voxel than an exact division puts it
+    inv = 1.0 / vs
+    ijk = torch.floor((points[:, :3] - pcr[:3]) * inv).to(torch.int32)  # xyz
     in_range = ((ijk[:, 0] >= 0) & (ijk[:, 0] < nx) & (ijk[:, 1] >= 0)
                 & (ijk[:, 1] < ny) & (ijk[:, 2] >= 0) & (ijk[:, 2] < nz))
     if valid is not None:

@@ -39,7 +39,8 @@ The MM modules (``branch1``, ``pool_branch_mm``, ``shared1``, ``cls_tower1``,
 ``reg_tower1``) follow the same rules. ``grads_to_jax_tree`` is the bridge's
 inverse for gradients: the port's parameter gradients in the layout of the
 flax ``params`` tree (transposes and the ConvTranspose flip undone), so that
-tests compare gradients leaf by leaf.
+tests compare gradients leaf by leaf; ``jax_variables_from_state_dict`` is
+its inverse for the whole state dict.
 
 ``seeded_state_dict`` fills every parameter and buffer of a model from
 ``numpy.random.default_rng(seed)`` with spread (running variances in
@@ -126,12 +127,17 @@ def _renamer(model):
     return rename
 
 
-def _flatten(tree, prefix=()):
+def _leaves(tree, prefix=()):
     for k, v in tree.items():
         if hasattr(v, "items"):
-            yield from _flatten(v, prefix + (k,))
+            yield from _leaves(v, prefix + (k,))
         else:
-            yield prefix + (k,), np.asarray(v)
+            yield prefix + (k,), v
+
+
+def _flatten(tree):
+    for path, v in _leaves(tree):
+        yield path, np.asarray(v)
 
 
 def _key_and_layout(path, leaf, rename=None):
@@ -235,6 +241,44 @@ def grads_to_jax_tree(model, params):
         node[path[-1]] = np.ascontiguousarray(grad)
     if named:
         raise KeyError(f"parameters without a JAX leaf: {sorted(named)}")
+    return out
+
+
+def jax_variables_from_state_dict(state_dict, model, like):
+    """``state_dict_from_jax``'s inverse: ``model``'s state dict -> a JAX
+    ``{"params", "batch_stats"}`` tree of numpy arrays in the layout of
+    ``like``, a tree of the same structure whose leaves have ``shape`` and
+    ``dtype`` (arrays, or the shapes ``jax.eval_shape`` gives). Raises on a
+    leaf without a key, a key without a leaf and a shape that differs."""
+    rename = _renamer(model)
+    unused = set(state_dict)
+    out = {}
+    for col in ("params", "batch_stats"):
+        if col not in like:
+            continue
+        for path, leaf in _leaves(like[col]):
+            key, layout = _key_and_layout(path, leaf, rename)
+            if key not in state_dict:
+                raise KeyError(f"JAX leaf {col}/{'/'.join(path)} has no state-dict key {key}")
+            if key not in unused:
+                raise KeyError(f"two JAX leaves map to {key}")
+            unused.discard(key)
+            t = state_dict[key]
+            arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+            arr = np.ascontiguousarray(_to_jax(arr, layout, tuple(leaf.shape)),
+                                       dtype=np.dtype(leaf.dtype))
+            if arr.shape != tuple(leaf.shape):
+                raise ValueError(f"shape mismatch at {key}: {arr.shape} against JAX "
+                                 f"{tuple(leaf.shape)}")
+            node = out.setdefault(col, {})
+            for m in path[:-1]:
+                node = node.setdefault(m, {})
+            node[path[-1]] = arr
+    unknown = set(like) - {"params", "batch_stats"}
+    if unknown:
+        raise KeyError(f"unmapped JAX collections {sorted(unknown)}")
+    if unused:
+        raise KeyError(f"state-dict keys without a JAX leaf: {sorted(unused)}")
     return out
 
 

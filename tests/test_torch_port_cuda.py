@@ -668,6 +668,55 @@ def test_dense_tail_on_card_matches_sparse(cuda, dtype):
 
 
 @pytest.mark.cuda
+def test_dense_tail_train_step_on_the_card(cuda):
+    """A training step with the dense tail and the MM branch on the card, at
+    the bench configuration's range and voxels (so BEV maps of 188 x 188:
+    batch norms over few values a channel would amplify rounding) on frames
+    of 40,000 points: 26 A1 launches in the forward (branch 0 15, the light
+    branch 1 11), 24 as dX (all but the two input convs) and 26 of A2. At
+    f32 (the heads' output layers scaled by 0.05, so that the heatmap stays
+    off the focal loss's clamp) on the sparse tail's proposals: the loss
+    within rtol 1e-4 of the sparse tail's, and the gradients' worst leaf,
+    cosine and norm ratio within 4 times what the sparse tail moves by in
+    another order of summation (on the plain versions of A1 and A2)."""
+    from cpd_tpu_torch.models.detector import VoxelRCNN, set_compute_dtype
+    from cpd_tpu_torch.utils import parity
+    from cpd_tpu_torch.utils.synthetic import make_train_batch
+
+    cfg = dict(num_classes=3, point_cloud_range=(-75.2, -75.2, -2.0, 75.2, 75.2, 4.0),
+               voxel_size=(0.1, 0.1, 0.15), max_voxels=40_000,
+               backbone_caps=(40_000, 30_000, 20_000, 20_000), mm=True, num_rois=128,
+               roi_per_image=64, num_rois_test=32)
+    raw = make_train_batch(0, 2, 40_000)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in raw.items()}
+    models = {}
+    for dense in (False, True):
+        model = VoxelRCNN(**dict(cfg, dense_tail=dense))
+        sd = seeded_state_dict(model, 0)
+        model.load_state_dict({k: v * 0.05 if k.endswith(".out.weight") else v
+                               for k, v in sd.items()}, strict=True)
+        models[dense] = model.to(cuda)
+    gg.gather_gemm.launches = gg.gather_gemm_dw.launches = 0
+    models[True].train()
+    loss, _ = models[True].loss_step(batch, generator=torch.Generator(cuda).manual_seed(0))
+    forward = gg.gather_gemm.launches
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (forward, gg.gather_gemm.launches - forward, gg.gather_gemm_dw.launches) == (26, 24, 26)
+    assert np.isfinite(float(loss.detach()))
+    for m in models.values():
+        set_compute_dtype(m, None)
+    loss_s, _, grads_s, props = parity.loss_and_gradients(models[False], batch, 0)
+    loss_d, _, grads_d, _ = parity.loss_and_gradients(models[True], batch, 0, props)
+    with parity.plain_sparse_convs():
+        _, _, grads_p, _ = parity.loss_and_gradients(models[False], batch, 0, props)
+    assert abs(loss_d - loss_s) <= 1e-4 * abs(loss_s)
+    lines, misses = parity.compare_gradients(grads_d, grads_s,
+                                             parity.gradient_errors(grads_p, grads_s), 4.0)
+    assert not misses, lines
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("max_points", [None, 5])
 def test_voxelizer_gives_the_same_bits_twice(cuda, max_points):
     """The voxelizer on a 200k-point frame at the bench configuration (90k
