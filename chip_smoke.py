@@ -5,6 +5,7 @@
     python3 chip_smoke.py --registry                        # phase 18 alone
     python3 chip_smoke.py --ops                             # phase 19 alone
     python3 chip_smoke.py --parity                          # phases 20 and 21 alone
+    python3 chip_smoke.py --nms                             # B4's paths and phase 22 alone
 
 Drives the port's paths at the bench configuration of the JAX package
 (bench.py: 3 classes, range +-75.2 x [-2, 4] m, voxels (0.1, 0.1, 0.15) m,
@@ -31,7 +32,7 @@ raising on failure:
 
 1. card: needs CUDA; prints the card's name and power limit;
 2. build: compiles every kernel source under cpd_tpu_torch/csrc/ (A1, A2,
-   G1-G4, R1, R2, F1) with nvcc for sm_90a, one process each, side by side, and
+   G1-G4, R1, R2, F1, B4a-c) with nvcc for sm_90a, one process each, side by side, and
    the native host library (cpd_tpu_torch/native/src/pointcloud.cpp) with
    g++ beside them, and prints
    what ptxas reports per kernel (registers a thread, spills; for each
@@ -240,8 +241,9 @@ raising on failure:
     sparse conv and masked statistics, each at the CPU tests' size on the
     card and on the CPU (floats within 1e-4 of scale, integers equal), then
     at full size with its median ms and peak memory; no kernel of its own
-    (the sparse conv launches A1, counted), so no kernels-line entry.
-    ``--ops`` runs the build and this phase alone.
+    (the sparse conv launches A1, counted; the NMS calls launch B4b and
+    B4c, counted, and their operands go to phase 22), so no kernels-line
+    entry. ``--ops`` runs the build and this phase alone.
 20. parity against the JAX package (``parity_phase``, right after 7): the
     f32 ``predict`` (TF32 off) of the bench configuration with both tails,
     on the committed reference's frame and weights
@@ -267,6 +269,26 @@ raising on failure:
     trainer's first step launching (26, 24, 26) and no A2 in its forward,
     finite losses, then timed steps: ms, device busy ms, idle share, peak
     memory. ``--parity`` runs the build and phases 20 and 21 alone.
+22. kernels B4a-c, rotated BEV overlap and NMS (``nms_phase``, right after
+    19). Every path that runs them counts their launches around one run
+    (``b4_counted``: the counts set to 0 just before, read just after, a
+    ``B4 launches, <path>`` line; the flagship predict of both tails, the
+    DBSCAN and PointPillars predicts, their batch-2 steps (the DBSCAN step
+    launches B4a for the RoI head's target IoU), phase 19's NMS calls), and
+    keeps copies of the operands of the NMS and BEV-overlap calls of that
+    run (``recording_b4``; and of a batch-4 predict of the eval CLI phase).
+    On each recorded NMS call's score-sorted operands (the flagship's
+    proposal and final NMS at batch 1 and 4, the DBSCAN yaml's 4096
+    proposals a sample at batch 2, phase 19's 8192-box call): B4b's words
+    and B4c's keep sets (greedy or fast, as the call) equal to the plain
+    versions, B4a on the same pairs within 2 ulp of its plain version; on
+    each recorded overlap (the RoI head's target IoU) B4a. Each timed: the
+    launch alone, the whole wrapper (corners and copies) and the plain
+    version, medians of 5 in turns, with a bound. ``--nms`` runs the build,
+    these paths alone (the dense-tail predict with its stage ms, the DBSCAN
+    predict with its ``iou_nms`` stage and memory, a DBSCAN training forward
+    and loss at batch 2, the PointPillars predict, phase 19's NMS calls)
+    and this phase.
 
 The last two lines of stdout are the card line and a JSON object; the line
 before them is the kernels JSON. For each use of A1 and A2 it gives the
@@ -295,7 +317,18 @@ launch none) and its ms (``forward_ms``), the median ms of the launch alone
 on one frame (and ``batch_*`` on the batch of 4), a bound
 of the bytes (coordinates and mask read once, indices written once) at 3.35
 TB/s against B x 2048 x N distance updates of 9 f32 operations at 67
-TFLOP/s; ``library_ms`` null.
+TFLOP/s; ``library_ms`` null. B4a-c (phase 22) give the launches of their
+main path's counted run (B4b and B4c: the flagship predict with the dense
+tail; B4a: the DBSCAN batch-2 step, the RoI head's target IoU) and
+``launches_by_path`` for every counted path, the launch-alone ms
+(``ms``), the whole wrapper's (``wrapper_ms``) and the plain version's
+summed over that run's recorded calls, and a bound: the boxes read once,
+the output written once, at 3.35 TB/s, against the f32 operations the clip
+formulation needs on these pairs (B4a every pair, B4b the valid pairs
+above the diagonal; per pair 2 an edge pass, 6 a vertex, 8 a crossing, 4 a
+shoelace term, 2 for the area, and 6 for B4b's IoU and test) at 67
+TFLOP/s; B4c is bound by its bytes (every word read once). ``library_ms``
+null: no PyTorch call computes rotated IoU or NMS.
 """
 import argparse
 import ast
@@ -334,6 +367,7 @@ from cpd_tpu_torch.ops import gather_gemm as a1
 from cpd_tpu_torch.ops import gather_probes as gp
 from cpd_tpu_torch.ops import sparse
 from cpd_tpu_torch import parallel
+from cpd_tpu_torch.ops import iou3d
 from cpd_tpu_torch.ops import nms
 from cpd_tpu_torch.ops import dbscan as r2
 from cpd_tpu_torch.ops import radius as r1
@@ -1589,7 +1623,8 @@ def predict_phase(model, batch, what, timed_loops):
     Returns the A1 launches of one counted predict."""
     want_launches = A1_PER_FORWARD[model.backbone.dense_tail]
     a1.gather_gemm.launches = 0
-    out = model.predict(batch)
+    with recording_b4(f"predict, {what}, batch 1"):
+        out = b4_counted(f"predict, {what}", lambda: model.predict(batch), B4_NMS)
     torch.cuda.synchronize()
     launches = a1.gather_gemm.launches
     if launches != want_launches:
@@ -1820,7 +1855,8 @@ def eval_cli_phase(dev, card):
 
         # predict alone on the same batches, already on the card: the loader,
         # the host copies and the detection records taken out
-        model.predict(batches[0])
+        with recording_b4(f"eval CLI predict, batch {batch_size}"):
+            model.predict(batches[0])
         runs = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -2249,8 +2285,9 @@ def anchor_proposals_of(model, batch):
 def anchor_stage_breakdown(model, batch):
     """Host-clock ms per stage of one anchor-model forward, synchronising
     after each; the proposal layer in its parts (decode of every anchor, the
-    top ``NMS_PRE_MAXSIZE`` per sample, rotated IoU + NMS per sample), and
-    the device memory that the IoU + NMS part adds at its peak."""
+    top ``NMS_PRE_MAXSIZE`` per sample, rotated IoU + NMS of the batch: B4b
+    and B4c), and the
+    device memory that the IoU + NMS part adds at its peak."""
     times, state = {}, {}
 
     def step(name, fn):
@@ -2288,14 +2325,15 @@ def anchor_stage_breakdown(model, batch):
         step("decode", lambda: model.dense_head.generate_predicted_boxes(state["dense_head"]))
         boxes, scores = state["decode"]
         pre = min(int(rpn.get("NMS_PRE_MAXSIZE", 4096)), boxes.shape[1])
-        step("top_k", lambda: [nms.top_k(s.amax(-1), pre) for s in scores])
+        step("top_k", lambda: nms.top_k(scores.amax(-1), pre))
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        step("iou_nms", lambda: [nms.nms_bev(
-            bx[ti], ts, thresh=rpn["NMS_THRESH"], pre_max_size=pre, post_max_size=n_rois,
-            valid=ts > 0.0, fast=bool(rpn.get("USE_FAST_NMS", True)))
-            for bx, (ts, ti) in zip(boxes, state["top_k"])])
+        ts, ti = state["top_k"]
+        nms_args = dict(thresh=rpn["NMS_THRESH"], pre_max_size=pre, post_max_size=n_rois,
+                        fast=bool(rpn.get("USE_FAST_NMS", True)))
+        step("iou_nms", lambda: nms.nms_bev_batched(
+            nms.gather_rows(boxes, ti), ts, valid=ts > 0.0, **nms_args))
         iou_peak = torch.cuda.max_memory_allocated() - base
         step("proposals", lambda: model._anchor_proposals(state["dense_head"], n_rois, rpn))
         last = state["proposals"]
@@ -2312,7 +2350,8 @@ def anchor_predict_phase(model, batch, what, card, want_a1):
     memory, the stage breakdown with the proposal layer's parts and the IoU
     + NMS peak, and a profiler window. Returns the A1 launches."""
     a1.gather_gemm.launches = a1.gather_gemm_dw.launches = 0
-    out = model.predict(batch)
+    with recording_b4(f"{what} predict, batch 1"):
+        out = b4_counted(f"{what} predict", lambda: model.predict(batch), B4_NMS)
     torch.cuda.synchronize()
     launches = (a1.gather_gemm.launches, a1.gather_gemm_dw.launches)
     if launches != (want_a1, 0):
@@ -2473,12 +2512,13 @@ def step_twice_identical(model, batch, dev, what, card):
                              f"{differ}")
 
 
-def anchor_train_phase(model, batch, what, card, dev, want):
+def anchor_train_phase(model, batch, what, card, dev, want, b4_want):
     """A batch-2 training step of an anchor model through ``make_train_step``
     on labels moved onto its own proposals: (A1 forward, A1 dX, A2) launches
     of the first step as ``want``, finite terms with the anchor losses, no
     step skipped, 2 warm-ups then timed steps (ms, phases, peak memory), a
-    profiler window, and the step bit-identical twice."""
+    profiler window, and the step bit-identical twice. ``b4_want`` flags the
+    kernels of B4 (a, b, c) that its first step must launch."""
     batch, matched = labels_on_proposals(model, batch, n_labelled=40,
                                          props=anchor_proposals_of(model, batch))
     print(f"training batch, {what} ({card}): {TRAIN_BATCH} frames of {N_POINTS} points, "
@@ -2490,7 +2530,9 @@ def anchor_train_phase(model, batch, what, card, dev, want):
     generator = torch.Generator(device=dev).manual_seed(0)
     with StepMarks(state) as marks:
         a1.gather_gemm.launches = a1.gather_gemm_dw.launches = 0
-        state, tb = train_step(state, batch, generator)
+        with recording_b4(f"{what} step, batch {TRAIN_BATCH}"):
+            state, tb = b4_counted(f"{what} step", lambda: train_step(state, batch, generator),
+                                   b4_want)
         torch.cuda.synchronize()
         fwd, a2_fwd = marks.rows[0]["forward_launches"]
         got = (fwd, a1.gather_gemm.launches - fwd, a1.gather_gemm_dw.launches, a2_fwd)
@@ -2654,7 +2696,7 @@ def anchor_phase(dev, card):
         model, train_batch, 40, props=anchor_proposals_of(model, train_batch))[0],
         step_generator(0, 0, dev), want=(ANCHOR_A1_FORWARD, ANCHOR_A1_DX, ANCHOR_A2))
     got = anchor_train_phase(model, train_batch, "DBSCAN VoxelRCNN", card, dev,
-                             (ANCHOR_A1_FORWARD, ANCHOR_A1_DX, ANCHOR_A2))
+                             (ANCHOR_A1_FORWARD, ANCHOR_A1_DX, ANCHOR_A2), B4_ALL)
     kernels += [
         kernel_entry("gather_gemm", "DBSCAN VoxelRCNN train step, forward", src1,
                      "cpd_tpu/ops/pallas_conv.py:77", got[0], *checks["forward"]),
@@ -2672,7 +2714,7 @@ def anchor_phase(dev, card):
     anchor_predict_phase(model, batch, "PointPillars", card, 0)
     anchor_small_check(PILLAR_YAML, ["DATA_CONFIG.POINT_CLOUD_RANGE",
                                      "[-6.4,-6.4,-2.0,6.4,6.4,4.0]"], "PointPillars", card)
-    anchor_train_phase(model, train_batch, "PointPillars", card, dev, (0, 0, 0))
+    anchor_train_phase(model, train_batch, "PointPillars", card, dev, (0, 0, 0), B4_NONE)
     del model, train_batch
     torch.cuda.empty_cache()
     print(f"PointPillars done at {time.perf_counter() - t0:.1f} s of the phase", flush=True)
@@ -4148,6 +4190,26 @@ def ops_timed(name, fn, card, reps=3):
     return out
 
 
+def ops_nms(dev, card):
+    """Phase 19's NMS calls on 8192 boxes within +-70 m and their scores of 3
+    classes (seed 8192): the class-agnostic and the per-class NMS at
+    pre_max_size 4096, each first counted (B4b and B4c must launch) with its
+    operands kept for phase 22, then timed."""
+    rng = np.random.default_rng(8192)
+    nms_boxes = torch.from_numpy(_ops_boxes(rng, 8192, spread=70.0)).to(dev)
+    nms_scores = torch.from_numpy(rng.random((8192, 3)).astype(np.float32)).to(dev)
+    agnostic = lambda: nms.class_agnostic_nms(nms_scores[:, 0], nms_boxes, OPS_NMS, 0.1)
+    multi = lambda: nms.multi_classes_nms(nms_scores, nms_boxes, OPS_NMS, 0.1)
+    with torch.no_grad():
+        with recording_b4("phase 19 class_agnostic_nms, 8192 boxes"):
+            b4_counted("phase 19 class_agnostic_nms", agnostic, B4_NMS)
+        b4_counted("phase 19 multi_classes_nms", multi, B4_NMS)
+        kept = ops_timed("class_agnostic_nms, 8192 boxes, pre_max_size 4096", agnostic, card)
+        per_class = ops_timed("multi_classes_nms, 3 classes, pre_max_size 4096", multi, card)
+    if not (kept[1].any() and per_class[1].any(dim=1).all()):
+        raise AssertionError("NMS: nothing kept")
+
+
 def ops_phase(dev, card):
     """Phase 19: every toolbox module of the port but the plotter on the
     card. (a) ``ops_card_against_cpu``; (b) each at its full size, timed:
@@ -4242,16 +4304,7 @@ def ops_phase(dev, card):
     if not (assigned["labels"] >= 0).any():
         raise AssertionError("atss_assign: no anchor assigned")
 
-    nms_boxes = torch.from_numpy(_ops_boxes(rng, 8192, spread=70.0)).to(dev)
-    nms_scores = torch.from_numpy(rng.random((8192, 3)).astype(np.float32)).to(dev)
-    with torch.no_grad():
-        kept = ops_timed("class_agnostic_nms, 8192 boxes, pre_max_size 4096",
-                         lambda: nms.class_agnostic_nms(nms_scores[:, 0], nms_boxes, OPS_NMS, 0.1),
-                         card)
-        multi = ops_timed("multi_classes_nms, 3 classes, pre_max_size 4096",
-                          lambda: nms.multi_classes_nms(nms_scores, nms_boxes, OPS_NMS, 0.1), card)
-    if not (kept[1].any() and multi[1].any(dim=1).all()):
-        raise AssertionError("NMS: nothing kept")
+    ops_nms(dev, card)
 
     ops_timed(f"points_in_boxes_mask, {N_POINTS} points x {OPS_GT_SLOTS} boxes",
               lambda: geometry.points_in_boxes_index(points, gt, gt_valid), card)
@@ -4305,6 +4358,302 @@ def ops_phase(dev, card):
     print(f"ops phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
 
 
+# ---- kernels B4a-c: rotated BEV overlap and NMS (phase 22) -----------------
+
+B4_SRC = "cpd_tpu_torch/csrc/nms_bev.cu"
+B4_KERNELS = (("pairwise_overlap_bev", "B4a", "cpd_tpu/ops/iou3d.py:166"),
+              ("nms_mask_bev", "B4b", "cpd_tpu/ops/nms.py:55"),
+              ("nms_suppress", "B4c", "cpd_tpu/ops/nms.py:24"))
+B4_NMS, B4_ALL, B4_NONE = (False, True, True), (True, True, True), (False, False, False)
+B4_MAIN_PATHS = {"B4a": "DBSCAN VoxelRCNN step", "B4b": "predict, dense tail",
+                 "B4c": "predict, dense tail"}
+B4_PATHS = {}    # path -> (B4a, B4b, B4c) launches of its counted run
+B4_RECORDS = {}  # operand set -> [("nms", boxes, scores, valid, kwargs) | ("overlap", a, b)]
+B4_RECORD_LIMIT = 4
+B4_TIMED_REPS = 5
+
+
+def b4_counts():
+    return (iou3d.pairwise_overlap_bev.launches, nms.nms_mask_bev.launches,
+            nms.nms_suppress.launches)
+
+
+def b4_counted(path, fn, want):
+    """``fn()`` with B4's launch counts set to 0 just before and read just
+    after, kept under ``path``; raises where a kernel that ``want`` flags (B4a,
+    B4b, B4c) launched no time."""
+    iou3d.pairwise_overlap_bev.launches = nms.nms_mask_bev.launches = 0
+    nms.nms_suppress.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = b4_counts()
+    B4_PATHS[path] = got
+    print(f"B4 launches, {path}: (B4a, B4b, B4c) = {got}", flush=True)
+    missing = [tag for (_, tag, _), n, w in zip(B4_KERNELS, got, want) if w and not n]
+    if missing:
+        raise AssertionError(f"{path}: {missing} launched no time, (B4a, B4b, B4c) = {got}")
+    return out
+
+
+@contextlib.contextmanager
+def recording_b4(name):
+    """Keep copies of the operands of the rotated NMS (``nms.nms_bev_batched``)
+    and BEV overlap (``iou3d.boxes_overlap_bev``) calls made inside, the first
+    ``B4_RECORD_LIMIT`` of each, under ``name`` for phase 22."""
+    calls = B4_RECORDS.setdefault(name, [])
+    batched, overlap = nms.nms_bev_batched, iou3d.boxes_overlap_bev
+
+    def nms_call(boxes, scores, thresh, pre_max_size=1024, post_max_size=256, valid=None,
+                 use_bev_iou=True, fast=False):
+        if sum(c[0] == "nms" for c in calls) < B4_RECORD_LIMIT:
+            calls.append(("nms", boxes.detach().clone(), scores.detach().clone(),
+                          None if valid is None else valid.clone(),
+                          dict(thresh=thresh, pre_max_size=pre_max_size,
+                               use_bev_iou=use_bev_iou, fast=fast)))
+        return batched(boxes, scores, thresh, pre_max_size, post_max_size, valid, use_bev_iou,
+                       fast)
+
+    def overlap_call(boxes_a, boxes_b, method="candidates"):
+        if sum(c[0] == "overlap" for c in calls) < B4_RECORD_LIMIT:
+            calls.append(("overlap", boxes_a.detach().clone(), boxes_b.detach().clone()))
+        return overlap(boxes_a, boxes_b, method)
+
+    nms.nms_bev_batched, iou3d.boxes_overlap_bev = nms_call, overlap_call
+    try:
+        yield
+    finally:
+        nms.nms_bev_batched, iou3d.boxes_overlap_bev = batched, overlap
+
+
+def b4_sorted_operands(boxes, scores, valid, thresh, pre_max_size, use_bev_iou, fast):
+    """The score-sorted boxes and valid mask that ``nms_bev_batched`` hands
+    B4b and B4c."""
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+    top, order = nms.top_k(torch.where(valid, scores, -math.inf), min(pre_max_size,
+                                                                      scores.shape[1]))
+    return nms.gather_rows(boxes[..., :7], order).contiguous(), torch.isfinite(top)
+
+
+def b4_timed(kernel, launch, wrapper, plain, nbytes, ops, what):
+    """Median device ms of the launch alone and of the whole wrapper
+    (``B4_TIMED_REPS`` runs in turns), the plain version's ms (one call: it
+    takes up to a second at K = 4096, and has just run in the check) and the
+    bound: the larger of ``nbytes`` at 3.35 TB/s and ``ops`` f32 operations
+    at 67 TFLOP/s."""
+    ms, wrapper_ms = paired_median_ms(launch, wrapper, reps=B4_TIMED_REPS)
+    _, plain_ms = timed_once_ms(plain)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_CORE_FLOPS * 1e3
+    row = dict(kernel=kernel, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"{kernel} at {what}: launch {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms (medians of "
+          f"{B4_TIMED_REPS}, in turns), plain {plain_ms:.4f} ms; bound {row['bound_ms']:.5f} "
+          f"ms by {row['bound_by']} ({nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP)", flush=True)
+    return row
+
+
+def b4_overlap_check(a, b, what):
+    """B4a against its plain version on (B, N, 7) and (B, M, 7) boxes: within
+    2 ulp of it (equal bits expected; NaN where the plain version has NaN, as
+    for the non-finite boxes of rows an NMS leaves invalid), the same bits
+    twice; timed. Returns the row and each pair's clip operations."""
+    got = iou3d.pairwise_overlap_bev(a, b)
+    ref, ops = iou3d.pairwise_overlap_bev_reference(a, b, count_ops=True)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    spacing = torch.nextafter(ref.abs(), torch.full_like(ref, math.inf)) - ref.abs()
+    err = torch.where(nan, 0.0, (got - ref).abs())
+    again = iou3d.pairwise_overlap_bev(a, b)
+    if not (bool(((err <= 2 * spacing) | nan).all()) and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got.view(torch.int32), again.view(torch.int32))):
+        raise AssertionError(f"B4a at {what}: off its plain version by {err.max().item()} "
+                             f"(over 2 ulp), NaN elsewhere, or two launches differ")
+    operands = iou3d.overlap_operands(a) + iou3d.overlap_operands(b)
+    nbytes = (a.shape[0] * (a.shape[1] + b.shape[1]) * 7 + got.numel()) * 4
+    row = b4_timed("B4a", lambda: iou3d.overlap_launch(*operands),
+                   lambda: iou3d.pairwise_overlap_bev(a, b),
+                   lambda: iou3d.pairwise_overlap_bev_reference(a, b), nbytes,
+                   float(ops.sum()), f"{what} ({tuple(a.shape)} x {tuple(b.shape)})")
+    row.update(max_abs_err=err.max().item(), pairs=got.numel(), nan_pairs=int(nan.sum()),
+               equal_bits=bool(torch.equal(got.view(torch.int32), ref.view(torch.int32))))
+    return row, ops
+
+
+def b4_nms_exact(boxes, valid, thresh, use_bev_iou, fast, what):
+    """B4b's words and B4c's keep set on one call's sorted operands, each
+    equal to its plain version's; returns both."""
+    words = nms.nms_mask_bev(boxes, valid, thresh, use_bev_iou)
+    ref = nms.nms_mask_bev_reference(boxes, valid, thresh, use_bev_iou)
+    keep = nms.nms_suppress(words, valid, fast)
+    torch.cuda.synchronize()
+    if not torch.equal(words, ref):
+        bad = (words != ref).nonzero()[0].tolist()
+        raise AssertionError(f"B4b at {what}: words differ from the plain version, first at "
+                             f"(sample, row, word) {bad}")
+    if not torch.equal(keep, nms.nms_suppress_reference(words, valid, fast)):
+        raise AssertionError(f"B4c at {what}: keep differs from the plain version")
+    return words, keep
+
+
+def b4_suppresses(words, valid, keep):
+    """Whether an NMS call set a bit and suppressed a valid row: only then
+    can its exact comparison tell a B4b that writes zeros, or a B4c that
+    keeps every valid row, from a right one."""
+    return bool(words.ne(0).any()) and bool((valid & ~keep).any())
+
+
+def b4_overlapping(boxes):
+    """``boxes`` (B, K, 7) with each odd row a copy of the row before it,
+    moved along its heading by a twentieth of its length: BEV and 3D IoU
+    0.95 / 1.05 = 0.905 for each pair (2m, 2m + 1)."""
+    out, pairs = boxes.clone(), boxes.shape[1] // 2
+    src = boxes[:, 0:2 * pairs:2]
+    step = 0.05 * src[..., 3]
+    out[:, 1::2] = src
+    out[:, 1::2, 0] += step * torch.cos(src[..., 6])
+    out[:, 1::2, 1] += step * torch.sin(src[..., 6])
+    return out.contiguous()
+
+
+def b4_suppress_bytes(words, valid, keep, fast):
+    """The bytes B4c must move on this call's data: ``valid`` read and
+    ``keep`` written once, and of the words only those the sweep needs
+    (none left of the diagonal holds a bit). Fast: each valid row's words
+    from its diagonal word on, since a suppressed row still suppresses.
+    Greedy: the same words of each kept row only; a row's removal is known
+    from the rows above it before its words are read."""
+    bsz, k, n_words = words.shape
+    from_diag = n_words - torch.arange(k, device=words.device) // 64
+    rows = valid if fast else keep
+    return int((rows * from_diag).sum()) * 8 + 2 * bsz * k
+
+
+def b4_nms_check(boxes, valid, thresh, use_bev_iou, fast, what):
+    """B4b and B4c against their plain versions on one call's sorted
+    operands: words and keep sets equal; timed. B4a on the same pairs.
+    Returns the rows and whether the call suppressed (``b4_suppresses``)."""
+    words, keep = b4_nms_exact(boxes, valid, thresh, use_bev_iou, fast, what)
+    bsz, k = valid.shape
+    corners, b7 = iou3d.overlap_operands(boxes)
+    ok = valid.to(torch.uint8).contiguous()
+    overlap_row, ops = b4_overlap_check(boxes, boxes, what)
+    # the pairs B4b needs: j > i, both valid; each valid pair's clip operations
+    n_valid = valid.sum(1)
+    upper = torch.triu(torch.ones((k, k), dtype=torch.bool, device=boxes.device), 1)
+    needed = upper & valid[:, :, None] & valid[:, None, :]
+    mask_ops = float(ops[needed].sum()) + 6.0 * float(needed.sum())  # + the IoU and its test
+    rows = [b4_timed("B4b", lambda: nms.mask_launch(corners, b7, ok, thresh, use_bev_iou),
+                     lambda: nms.nms_mask_bev(boxes, valid, thresh, use_bev_iou),
+                     lambda: nms.nms_mask_bev_reference(boxes, valid, thresh, use_bev_iou),
+                     bsz * k * 7 * 4 + bsz * k + words.numel() * 8, mask_ops, what),
+            b4_timed("B4c", lambda: nms.suppress_launch(words, ok, fast),
+                     lambda: nms.nms_suppress(words, valid, fast),
+                     lambda: nms.nms_suppress_reference(words, valid, fast),
+                     b4_suppress_bytes(words, valid, keep, fast), 0.0,
+                     f"{what} ({'fast' if fast else 'greedy'})")]
+    for row in rows:
+        row.update(max_abs_err=0.0, pairs=int(needed.sum()))
+    print(f"B4b/B4c at {what}: B={bsz} K={k}, valid rows {n_valid.tolist()}, "
+          f"{int(needed.sum())} pairs needed, {int(words.ne(0).sum())} nonzero words, kept "
+          f"{keep.sum(1).tolist()}; words and keep sets equal to the plain versions", flush=True)
+    return rows + [dict(overlap_row, on_nms_pairs=True)], b4_suppresses(words, valid, keep)
+
+
+def nms_phase(card):
+    """Phase 22: kernels B4a-c against their plain versions on every operand
+    set recorded on the paths: each rotated NMS call's sorted operands (B4b
+    words and B4c keep sets exactly; B4a on the same pairs within 2 ulp) and
+    each recorded BEV overlap (B4a), timed. Returns the kernels-line entries
+    of B4a-c: launches of its main path's counted run (``B4_MAIN_PATHS``),
+    times and bounds summed over that path's recorded calls.
+    Each operand set with NMS calls must have one that suppressed
+    (``b4_suppresses``); where the seeded model's calls did not, its first
+    call's operands with overlapping copies (``b4_overlapping``) at the same
+    B and K must, with words and keep sets exact."""
+    t0 = time.perf_counter()
+    rows = {}
+    for name, calls in B4_RECORDS.items():
+        suppressed, first = False, None
+        for call in calls:
+            if call[0] == "overlap":
+                rows.setdefault(name, []).append(b4_overlap_check(call[1][None], call[2][None],
+                                                                  name)[0])
+                continue
+            boxes, scores, valid, kw = call[1:]
+            top_boxes, top_valid = b4_sorted_operands(boxes, scores, valid, **kw)
+            first = first or (top_boxes, top_valid, kw)
+            got, hit = b4_nms_check(top_boxes, top_valid, kw["thresh"], kw["use_bev_iou"],
+                                    kw["fast"], name)
+            rows.setdefault(name, []).extend(got)
+            suppressed |= hit
+        if first is None or suppressed:
+            continue
+        top_boxes, top_valid, kw = first
+        what = f"{name}, overlapping copies"
+        words, keep = b4_nms_exact(b4_overlapping(top_boxes), top_valid, kw["thresh"],
+                                   kw["use_bev_iou"], kw["fast"], what)
+        if not b4_suppresses(words, top_valid, keep):
+            raise AssertionError(f"B4b/B4c at {what}: no bit set or no valid row suppressed")
+        print(f"B4b/B4c at {what}: B={top_valid.shape[0]} K={top_valid.shape[1]}, "
+              f"{int(words.ne(0).sum())} nonzero words, kept {keep.sum(1).tolist()} of "
+              f"{top_valid.sum(1).tolist()}; words and keep sets equal to the plain versions",
+              flush=True)
+    kernels = []
+    for idx, (name, tag, replaces) in enumerate(B4_KERNELS):
+        path = B4_MAIN_PATHS[tag]
+        # B4a's launches on a path are its BEV overlaps, not the NMS pairs it is checked on
+        mine = [r for n, rs in rows.items() if n.startswith(path) for r in rs
+                if r["kernel"] == tag and not r.get("on_nms_pairs")]
+        if not mine:
+            raise AssertionError(f"{tag}: no recorded call on {path}: {sorted(rows)}")
+        everywhere = [r for rs in rows.values() for r in rs if r["kernel"] == tag]
+        kernels.append({
+            "name": name, "path": path, "route": "cuda", "source": B4_SRC, "replaces": replaces,
+            "launches": B4_PATHS[path][idx],
+            "max_abs_err": max(r["max_abs_err"] for r in everywhere),
+            "ms": sum(r["ms"] for r in mine), "wrapper_ms": sum(r["wrapper_ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": sum(r["bound_ms"] for r in mine),
+            "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+                r["bound_ms"] for r in mine if r["bound_by"] == by)),
+            "library_ms": None,
+            "launches_by_path": {p: n[idx] for p, n in B4_PATHS.items()}})
+    print(f"B4 phase: {sum(len(r) for r in rows.values())} checks over {len(rows)} operand "
+          f"sets in {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return kernels
+
+
+def nms_paths(dev, card):
+    """``--nms``: the paths that run B4, each counted and recorded: the
+    flagship predict (dense tail, batch 1, its stage ms), the DBSCAN yaml's
+    predict (frames/s, the ``iou_nms`` stage and its memory) and the
+    training forward and loss of a batch-2 step (4096 proposals a sample,
+    the RoI head's target IoU), PointPillars' predict, phase 19's NMS calls;
+    then phase 22."""
+    pts, valid = make_lidar_frame(np.random.default_rng(0), N_POINTS)
+    batch = {"points": torch.from_numpy(pts)[None].to(dev),
+             "points_valid": torch.from_numpy(valid)[None].to(dev)}
+    model = seeded_model(dict(BENCH, dense_tail=True), 0, dev)
+    predict_phase(model, batch, "dense tail", TIMED_LOOPS)
+    del model
+    _, model = yaml_model(DBSCAN_YAML, [], 0, dev)
+    anchor_predict_phase(model, batch, "DBSCAN VoxelRCNN", card, ANCHOR_A1_FORWARD)
+    train_batch = to_device(make_train_batch(0, TRAIN_BATCH, N_POINTS), dev)
+    props = anchor_proposals_of(model, train_batch)
+    labelled, _ = labels_on_proposals(model, train_batch, 40, props=props)
+    model.train()
+    with recording_b4(f"DBSCAN VoxelRCNN step, batch {TRAIN_BATCH}"):
+        b4_counted("DBSCAN VoxelRCNN step", lambda: model.loss_step(labelled), B4_ALL)
+    del model, train_batch, labelled
+    torch.cuda.empty_cache()
+    _, model = yaml_model(PILLAR_YAML, PILLAR_SETS, 0, dev)
+    anchor_predict_phase(model, batch, "PointPillars", card, 0)
+    del model
+    torch.cuda.empty_cache()
+    ops_nms(dev, card)
+    return nms_phase(card)
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     parser.add_argument("--determinism", type=int, metavar="RUNS",
@@ -4316,6 +4665,9 @@ def main():
                         help="run only phase 18 (after the build) and print its kernels line")
     parser.add_argument("--ops", action="store_true",
                         help="run only phase 19, the toolbox modules (after the build)")
+    parser.add_argument("--nms", action="store_true",
+                        help="run only the paths that launch kernels B4a-c (counted and timed) "
+                             "and phase 22, after the build, and print their kernels line")
     parser.add_argument("--parity", action="store_true",
                         help="run only phases 20 (bench-scale parity against the committed JAX "
                              "reference) and 21 (dense-tail training), after the build")
@@ -4347,6 +4699,10 @@ def main():
         return
     if args.ops:
         ops_phase(dev, card)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.nms:
+        print(json.dumps({"kernels": nms_paths(dev, card)}))
         print(f"total {time.perf_counter() - t_start:.1f} s")
         return
     if args.parity:
@@ -4406,6 +4762,9 @@ def main():
     kernels += registry_phase(dev, card)
     torch.cuda.empty_cache()
     ops_phase(dev, card)
+    torch.cuda.empty_cache()
+    kernels += nms_phase(card)
+    B4_RECORDS.clear()
     torch.cuda.empty_cache()
 
     kernels += training_phase(dev)

@@ -110,20 +110,16 @@ class CenterHead(nn.Module):
         rois (B, post, 7), roi_scores, roi_labels (1-based int32), roi_valid."""
         hm = torch.sigmoid(preds["hm"].permute(0, 3, 1, 2))
         maps = [preds[n].permute(0, 3, 1, 2) for n in ("center", "center_z", "dim", "rot")]
-        outs = []
-        for i in range(hm.shape[0]):
-            boxes, scores, labels, valid = gaussian.decode_bbox_from_heatmap(
-                hm[i], *(m[i] for m in maps), self.voxel_size, self.point_cloud_range,
-                self.feature_map_stride, k=k, score_thresh=score_thresh,
-                post_center_limit_range=self.point_cloud_range)
-            if nms_cfg is not None:
-                idx, valid = nms.nms_bev(
-                    boxes, scores, thresh=nms_cfg["NMS_THRESH"],
-                    pre_max_size=min(int(nms_cfg["NMS_PRE_MAXSIZE"]), k),
-                    post_max_size=min(int(nms_cfg["NMS_POST_MAXSIZE"]), post_max_size),
-                    valid=valid, fast=bool(nms_cfg.get("USE_FAST_NMS", True)))
-                boxes, scores, labels = boxes[idx], scores[idx], labels[idx]
-            outs.append((boxes, scores, (labels + 1).to(torch.int32), valid))
-        rois, roi_scores, roi_labels, roi_valid = (torch.stack(t) for t in zip(*outs))
+        rois, roi_scores, labels, roi_valid = gaussian.decode_bbox_from_heatmap(
+            hm, *maps, self.voxel_size, self.point_cloud_range, self.feature_map_stride, k=k,
+            score_thresh=score_thresh, post_center_limit_range=self.point_cloud_range)
+        if nms_cfg is not None:
+            idx, roi_valid = nms.nms_bev_batched(
+                rois, roi_scores, thresh=nms_cfg["NMS_THRESH"],
+                pre_max_size=min(int(nms_cfg["NMS_PRE_MAXSIZE"]), k),
+                post_max_size=min(int(nms_cfg["NMS_POST_MAXSIZE"]), post_max_size),
+                valid=roi_valid, fast=bool(nms_cfg.get("USE_FAST_NMS", True)))
+            rois, roi_scores, labels = (nms.gather_rows(t, idx) for t in (rois, roi_scores, labels))
+        roi_labels = (labels + 1).to(torch.int32)
         return {"rois": rois, "roi_scores": roi_scores, "roi_labels": roi_labels,
                 "roi_valid": roi_valid}

@@ -361,16 +361,13 @@ class VoxelRCNN(nn.Module):
         best = scores.amax(dim=-1)
         labels = (scores.argmax(dim=-1) + 1).to(torch.int32)
         pre = min(int(nms_cfg.get("NMS_PRE_MAXSIZE", 4096)), boxes.shape[1])
-        res = []
-        for bx, s, lb in zip(boxes, best, labels):
-            ts, ti = nms_ops.top_k(s, pre)
-            bb, ll = bx[ti], lb[ti]
-            idx, mask = nms_ops.nms_bev(
-                bb, ts, thresh=nms_cfg["NMS_THRESH"], pre_max_size=pre, post_max_size=n_rois,
-                valid=ts > 0.0, fast=bool(nms_cfg.get("USE_FAST_NMS", True)))
-            res.append((bb[idx], ts[idx], ll[idx], mask))
-        rb, rs, rl, rv = (torch.stack(t) for t in zip(*res))
-        return {"rois": rb, "roi_scores": rs, "roi_labels": rl, "roi_valid": rv}
+        ts, ti = nms_ops.top_k(best, pre)
+        bb, ll = nms_ops.gather_rows(boxes, ti), nms_ops.gather_rows(labels, ti)
+        idx, mask = nms_ops.nms_bev_batched(
+            bb, ts, thresh=nms_cfg["NMS_THRESH"], pre_max_size=pre, post_max_size=n_rois,
+            valid=ts > 0.0, fast=bool(nms_cfg.get("USE_FAST_NMS", True)))
+        return {"rois": nms_ops.gather_rows(bb, idx), "roi_scores": nms_ops.gather_rows(ts, idx),
+                "roi_labels": nms_ops.gather_rows(ll, idx), "roi_valid": mask}
 
     def compute_loss(self, out, batch):
         """Total training loss = dense-head loss (+ RoI-head loss), and the
@@ -424,16 +421,14 @@ class VoxelRCNN(nn.Module):
             boxes, scores = out["rois"], out["roi_scores"]
         labels = out["roi_labels"]
         valid = out["roi_valid"] & (scores > score_thresh)
-        res = []
-        for b, s, l, v in zip(boxes, scores, labels, valid):
-            idx, mask = nms_ops.nms_bev(
-                b, s, thresh=nms_cfg["NMS_THRESH"],
-                pre_max_size=min(int(nms_cfg["NMS_PRE_MAXSIZE"]), b.shape[0]),
-                post_max_size=min(int(nms_cfg["NMS_POST_MAXSIZE"]), post_max),
-                valid=v, fast=bool(nms_cfg.get("USE_FAST_NMS", True)))
-            res.append((b[idx], s[idx], l[idx], mask))
-        fb, fs, fl, fv = (torch.stack(t) for t in zip(*res))
-        return {"pred_boxes": fb, "pred_scores": fs, "pred_labels": fl, "pred_valid": fv}
+        idx, mask = nms_ops.nms_bev_batched(
+            boxes, scores, thresh=nms_cfg["NMS_THRESH"],
+            pre_max_size=min(int(nms_cfg["NMS_PRE_MAXSIZE"]), boxes.shape[1]),
+            post_max_size=min(int(nms_cfg["NMS_POST_MAXSIZE"]), post_max),
+            valid=valid, fast=bool(nms_cfg.get("USE_FAST_NMS", True)))
+        return {"pred_boxes": nms_ops.gather_rows(boxes, idx),
+                "pred_scores": nms_ops.gather_rows(scores, idx),
+                "pred_labels": nms_ops.gather_rows(labels, idx), "pred_valid": mask}
 
 
 _DETECTORS = {"VoxelRCNN": VoxelRCNN, "CenterPoint": CenterPoint}

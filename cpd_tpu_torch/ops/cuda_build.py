@@ -24,13 +24,17 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 KERNELS = ("gather_gemm", "gather_gemm_dw", "gather_gemm_flat", "gather_gemm_per_tap",
-           "lane_gather_gemm", "lane_gather", "radius_count", "dbscan", "farthest_point_sample")
+           "lane_gather_gemm", "lane_gather", "radius_count", "dbscan", "farthest_point_sample",
+           "nms_bev")
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in KERNELS}
 # headers that the sources include (part of every library's key)
 HEADERS = (_PKG / "csrc" / "gather_common.cuh", _PKG / "csrc" / "lane_common.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+# flags of one source beside NVCC_FLAGS: the rotated overlap repeats its plain
+# version's arithmetic, which has no fused multiply-add
+SOURCE_FLAGS = {"nms_bev": ["-fmad=false"]}
 # dtype codes of the C entry points
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _libs = {}
@@ -48,10 +52,14 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _flags(name: str):
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def library_path(name: str) -> Path:
     """The built library's path, keyed by a hash of the source, the headers
     and the flags."""
-    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(_flags(name)).encode())
     for header in HEADERS:
         digest.update(header.read_bytes())
     return BUILD_DIR / f"libcpd_{name}_{digest.hexdigest()[:12]}.so"
@@ -72,7 +80,7 @@ def build(verbose: bool = False) -> float:
         procs = []
         for name in todo:
             tmp_out = Path(tmp) / library_path(name).name
-            cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+            cmd = [_nvcc(), *_flags(name), *(["-Xptxas", "-v"] if verbose else []),
                    "-o", str(tmp_out), str(SOURCES[name])]
             procs.append((name, tmp_out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -114,9 +122,9 @@ def load(name: str, argtypes, symbol: str | None = None):
     return _libs[symbol]
 
 
-def on_cuda(named_tensors) -> bool:
-    """False for CPU operands, True for CUDA ones (which must be contiguous
-    and on one card); raises on mixed or other devices."""
+def on_cuda(named_tensors, contiguous: bool = True) -> bool:
+    """False for CPU operands, True for CUDA ones (which must be on one card
+    and, with ``contiguous``, contiguous); raises on mixed or other devices."""
     devices = {t.device for _, t in named_tensors}
     if len(devices) != 1:
         raise ValueError(f"all operands must be on one device, got {devices}")
@@ -126,6 +134,6 @@ def on_cuda(named_tensors) -> bool:
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     for name, t in named_tensors:
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return True

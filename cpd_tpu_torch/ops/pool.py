@@ -75,6 +75,17 @@ def query_cells(query_xyz, pcr, vs):
     return torch.floor((query_xyz - pcr) * (1.0 / vs))
 
 
+def voxel_centers(cells, vs, pcr):
+    """f32 world centres ``(cells + 0.5) * vs + pcr`` of integer ``cells``
+    as the jitted JAX query computes them: XLA:CPU contracts the product and
+    the sum into one fused multiply-add, rounded once (emulated in f64, where
+    the product of two f32 values is exact). Rounding the product first puts
+    a centre an ulp off, and a query equidistant from two voxels then orders
+    them otherwise."""
+    half = (cells.to(torch.float32) + 0.5).double()
+    return (half * vs.double() + pcr.double()).float()
+
+
 def voxel_query(query_xyz, voxel_keys, grid: GridSpec, voxel_size, point_cloud_range,
                 downsample: int, query_range: Tuple[int, int, int], radius: float,
                 nsample: int):
@@ -101,7 +112,7 @@ def voxel_query(query_xyz, voxel_keys, grid: GridSpec, voxel_size, point_cloud_r
     idx = torch.clamp(torch.searchsorted(keys64, nkeys.reshape(-1)), 0, len(keys64) - 1)
     found = ((keys64[idx] == nkeys.reshape(-1)) & (nkeys.reshape(-1) != INVALID_KEY))
     idx, found = idx.reshape(nkeys.shape), found.reshape(nkeys.shape)
-    centers = (nc.flip(-1).to(torch.float32) + 0.5) * vs + pcr  # (Q, W, 3) xyz
+    centers = voxel_centers(nc.flip(-1), vs, pcr)  # (Q, W, 3) xyz
     dist = fps.fused_norm(centers - query_xyz[:, None, :])
     score = torch.where(found & (dist <= radius), -dist, float("-inf"))
     top, sel = _top_k(score, nsample)

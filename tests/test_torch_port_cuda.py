@@ -1,5 +1,5 @@
 """Tests of the port that need a CUDA card (marker ``cuda``): kernels A1, A2,
-G1-G4, R1, R2 and F1 have no CPU or interpret mode. They skip without a card. This file
+G1-G4, R1, R2, F1 and B4a-c have no CPU or interpret mode. They skip without a card. This file
 imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda
@@ -1006,3 +1006,126 @@ def test_farthest_point_sample_kernel_rejects_wrong_operands(cuda):
         farthest_point_sample(p, torch.ones(1, 8, device=cuda), 4)  # not bool
     with pytest.raises(ValueError):
         farthest_point_sample(p, torch.ones(1, 8, dtype=torch.bool), 4)  # on the CPU
+
+
+def _nms_boxes(rng, b, k, spread=None, slivers=0):
+    """(b, k, 7) boxes, a third jittered copies and a few exact duplicates;
+    ``slivers`` rows narrower than the f32 spacing at 70 m."""
+    spread = spread or max(2.0, 1.2 * np.sqrt(k))
+    boxes = np.zeros((b, k, 7), np.float32)
+    boxes[..., :2] = rng.uniform(-spread, spread, (b, k, 2))
+    boxes[..., 2] = rng.uniform(-1, 1, (b, k))
+    boxes[..., 3:6] = rng.uniform(0.5, 4.0, (b, k, 3))
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (b, k))
+    n_copy = k // 3
+    if n_copy:
+        src = rng.integers(0, k, n_copy)
+        boxes[:, -n_copy:] = boxes[:, src] + rng.normal(0, 0.2, (b, n_copy, 7))
+        boxes[:, -n_copy:, 3:6] = np.abs(boxes[:, -n_copy:, 3:6]) + 0.3
+        boxes[:, -(n_copy // 4 + 1):] = boxes[:, src[:n_copy // 4 + 1]]
+    if slivers:
+        boxes[:, :slivers, :2] = (70.0, 3.0)
+        boxes[:, :slivers, 3] = 1e-6
+    return boxes
+
+
+def _within_ulps(got, ref, ulps=2):
+    """|got - ref| within ``ulps`` f32 spacings of ``ref``."""
+    spacing = torch.nextafter(ref.abs(), torch.full_like(ref, np.inf)) - ref.abs()
+    return bool(((got - ref).abs() <= ulps * spacing).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,slivers", [(1, 1, 1, 0), (1, 63, 65, 0), (3, 200, 130, 4),
+                                           (2, 1000, 64, 0), (1, 4096, 300, 8)])
+def test_pairwise_overlap_bev_kernel_matches_plain(cuda, b, n, m, slivers):
+    """Kernel B4a against its plain version on the card, within 2 ulp (the
+    two repeat each other's operations without fused multiply-adds: equal
+    bits are expected)."""
+    from cpd_tpu_torch.ops import iou3d
+    rng = np.random.default_rng(n + m)
+    a = torch.from_numpy(_nms_boxes(rng, b, n, slivers=slivers)).to(cuda)
+    c = torch.from_numpy(_nms_boxes(rng, b, m, spread=max(2.0, 1.2 * np.sqrt(n)))).to(cuda)
+    before = iou3d.pairwise_overlap_bev.launches
+    got = iou3d.pairwise_overlap_bev(a, c)
+    assert iou3d.pairwise_overlap_bev.launches - before == 1
+    ref = iou3d.pairwise_overlap_bev_reference(a, c)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, m) and _within_ulps(got, ref)
+    assert torch.equal(got, iou3d.pairwise_overlap_bev(a, c))
+    if n > 1:
+        assert bool((got > 0).any())
+    # on a CUDA tensor boxes_overlap_bev runs the kernel whatever method says
+    assert torch.equal(iou3d.boxes_overlap_bev(a[0], c[0]), got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(1, 1), (1, 63), (2, 64), (3, 65), (2, 500), (1, 4096), (3, 1000)])
+@pytest.mark.parametrize("bev", [True, False])
+def test_nms_mask_and_suppress_kernels_equal_plain(cuda, b, k, bev):
+    """Kernels B4b and B4c against their plain versions on the card: the
+    words and both suppressions exactly, a sample with every row invalid,
+    samples with their valid rows cut at different counts."""
+    from cpd_tpu_torch.ops import nms
+    rng = np.random.default_rng(k)
+    boxes = torch.from_numpy(_nms_boxes(rng, b, k, slivers=min(4, k // 8))).to(cuda)
+    valid = torch.from_numpy(rng.random((b, k)) < 0.9).to(cuda)
+    if b > 1:
+        valid[-1] = False
+        valid[0, (2 * k) // 3:] = False
+    before = (nms.nms_mask_bev.launches, nms.nms_suppress.launches)
+    words = nms.nms_mask_bev(boxes, valid, 0.2, use_bev_iou=bev)
+    ref = nms.nms_mask_bev_reference(boxes, valid, 0.2, use_bev_iou=bev)
+    torch.cuda.synchronize()
+    assert words.shape == (b, k, (k + 63) // 64) and torch.equal(words, ref)
+    for fast in (False, True):
+        keep = nms.nms_suppress(words, valid, fast)
+        assert torch.equal(keep, nms.nms_suppress_reference(words, valid, fast)), fast
+        if b > 1:
+            assert not keep[-1].any()
+    assert (nms.nms_mask_bev.launches - before[0], nms.nms_suppress.launches - before[1]) == (1, 2)
+    if k > 64:
+        assert bool((words != 0).any())
+
+
+@pytest.mark.cuda
+def test_batched_nms_on_the_card_equals_the_loop_and_the_plain_versions(cuda):
+    """``nms_bev_batched`` launches B4b and B4c once for the whole batch and
+    equals ``nms_bev`` a sample; ``multi_classes_nms`` launches them once for
+    its classes; ``nms_normal_bev`` sweeps on B4c."""
+    from cpd_tpu_torch.ops import nms
+    rng = np.random.default_rng(5)
+    boxes = torch.from_numpy(_nms_boxes(rng, 3, 700)).to(cuda)
+    scores = torch.from_numpy(rng.random((3, 700)).astype(np.float32)).to(cuda)
+    valid = scores > 0.05
+    for fast in (False, True):
+        before = (nms.nms_mask_bev.launches, nms.nms_suppress.launches)
+        idx, mask = nms.nms_bev_batched(boxes, scores, 0.3, 512, 200, valid, fast=fast)
+        assert (nms.nms_mask_bev.launches - before[0], nms.nms_suppress.launches - before[1]) \
+            == (1, 1)
+        for i in range(3):
+            one = nms.nms_bev(boxes[i], scores[i], 0.3, 512, 200, valid[i], fast=fast)
+            assert torch.equal(idx[i], one[0]) and torch.equal(mask[i], one[1])
+    before = nms.nms_mask_bev.launches
+    cfg = {"NMS_THRESH": 0.3, "NMS_PRE_MAXSIZE": 512, "NMS_POST_MAXSIZE": 100}
+    out = nms.multi_classes_nms(scores.T.contiguous(), boxes[0], cfg, 0.1)
+    assert nms.nms_mask_bev.launches - before == 1
+    for c in range(3):
+        one = nms.class_agnostic_nms(scores[c], boxes[0], cfg, 0.1)
+        assert all(torch.equal(a[c], o) for a, o in zip(out, one))
+    before = nms.nms_suppress.launches
+    idx, mask = nms.nms_normal_bev(boxes[0], scores[0], 0.1, 512, 100)
+    assert nms.nms_suppress.launches - before == 1 and bool(mask.any())
+
+
+@pytest.mark.cuda
+def test_nms_kernels_reject_wrong_operands(cuda):
+    from cpd_tpu_torch.ops import iou3d, nms
+    boxes = torch.zeros(1, 8, 7, device=cuda)
+    with pytest.raises(ValueError):
+        nms.nms_mask_bev(boxes, torch.ones(1, 8, dtype=torch.bool), 0.1)  # on the CPU
+    with pytest.raises(ValueError):
+        nms.nms_suppress(torch.zeros(1, 8, 1, dtype=torch.int32, device=cuda),
+                         torch.ones(1, 8, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):
+        iou3d.pairwise_overlap_bev(boxes, torch.zeros(1, 8, 7))

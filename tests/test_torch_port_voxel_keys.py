@@ -12,11 +12,15 @@ the jitted program:
 * the RoI voxel query's cells (``ops.pool.query_cells``, read by
   ``voxel_query``, ``voxel_query_fast`` and ``voxel_query_multi``) at
   downsample 1, 4 and 8, and the queries themselves on points at cell faces;
-* the CenterHead's target pixels (``ops.gaussian.assign_center_targets``).
+* the CenterHead's target pixels (``ops.gaussian.assign_center_targets``);
+* the nearest-first voxel query's centres (``ops.pool.voxel_centers``): XLA
+  contracts ``(c + 0.5) * vs + pcr`` into a fused multiply-add, and the order
+  of two equidistant voxels follows the centres' last bit.
 
 Each input holds values whose exact quotient floors to another integer: the
 tests assert that, so they keep seeing the fault they guard against.
 """
+import hashlib
 from functools import partial
 
 import jax
@@ -31,6 +35,7 @@ from cpd_tpu.ops import sparse as jsparse
 from cpd_tpu.ops import voxelizer as jvox
 from cpd_tpu_torch.ops import gaussian, pool, sparse, voxelizer
 from cpd_tpu_torch.utils.synthetic import make_lidar_frame
+from tests import torch_port_refs as refs
 from tests.torch_port_refs import one_torch_thread  # noqa: F401
 
 BENCH_RANGE = (-75.2, -75.2, -2.0, 75.2, 75.2, 4.0)
@@ -111,9 +116,8 @@ def test_voxel_queries_at_cell_faces_match_jitted_jax():
     divides). ``voxel_query_multi`` (the RoI head's, taps in a fixed order):
     the same indices and validity, centres within 1e-5. The nearest-first
     ``voxel_query`` and ``voxel_query_fast``, with ``nsample`` the whole
-    window: the same voxels found a query. A query on a face is equidistant
-    from two voxel centres, and XLA computes the centres with a fused
-    multiply-add, so the order of such ties is not theirs to hold."""
+    window: the same voxels found a query (their order on 2,000,000 queries:
+    ``test_nearest_voxel_query_orders_ties_as_jitted_jax``)."""
     rng = np.random.default_rng(21)
     grid = jsparse.GridSpec(32, 32, 20)  # 0.2 x 0.2 x 0.3 m cells: BENCH_VOXEL at downsample 2
     pcr, vs, ds = (-3.2, -3.2, -2.0, 3.2, 3.2, 4.0), BENCH_VOXEL, 2
@@ -149,6 +153,77 @@ def test_voxel_queries_at_cell_faces_match_jitted_jax():
         np.testing.assert_array_equal(found, np.sort(np.where(rvalid, ridx, -1), axis=1),
                                       err_msg=name)
         assert 0 < int(valid.sum()) < valid.numel(), name
+
+
+AUDIT_QUERIES = 2_000_000
+AUDIT_CHUNK = 20_000  # queries a call: the port's (Q, 27, 3) temporaries stay in cache
+AUDIT_BLOCK = 1_000   # queries a digest
+AUDIT_REF = "voxel_query_order"
+AUDIT_QUERY = (jsparse.GridSpec(32, 32, 20), BENCH_VOXEL, (-3.2, -3.2, -2.0, 3.2, 3.2, 4.0), 2,
+               (1, 1, 1), 0.47, 27)
+
+
+def _audit_queries():
+    """The seeded queries and voxel keys of the audit: half the queries on
+    cell faces in each axis, where two voxel centres lie at the same distance."""
+    rng = np.random.default_rng(22)
+    grid, vs, pcr, ds = AUDIT_QUERY[:4]
+    keys = np.unique(rng.integers(0, grid.nx * grid.ny * grid.nz, 12000)).astype(np.int32)
+    q = rng.uniform(np.float32(pcr[:3]), np.float32(pcr[3:]),
+                    (AUDIT_QUERIES, 3)).astype(np.float32)
+    for axis in range(3):
+        cell = np.float32(vs[axis]) * np.float32(ds)
+        on_face = rng.random(AUDIT_QUERIES) < 0.5
+        q[:, axis] = np.where(on_face, _at_faces(rng, pcr[axis], cell, grid[axis], AUDIT_QUERIES,
+                                                 ulps=0), q[:, axis])
+    return q, keys
+
+
+def _block_digests(idx):
+    """A 64-bit digest of each ``AUDIT_BLOCK`` queries' (Q, 27) int32 indices."""
+    flat = np.ascontiguousarray(idx, dtype="<i4")
+    return np.array([np.frombuffer(hashlib.blake2b(flat[s:s + AUDIT_BLOCK].tobytes(),
+                                                   digest_size=8).digest(), "<u8")[0]
+                     for s in range(0, len(flat), AUDIT_BLOCK)], np.uint64)
+
+
+def test_nearest_voxel_query_orders_ties_as_jitted_jax():
+    """``voxel_query`` (nearest first, ``nsample`` the whole 27-voxel window)
+    on 2,000,000 seeded queries (``_audit_queries``): the same indices in the
+    same order as the jitted JAX query, whose order is committed as one digest
+    a block of 1,000 queries (``tests/torch_port_refs/voxel_query_order.npz``).
+    The centres' fused multiply-add decides the ties; rounding the product
+    first (the port before the repair) gives another centre in 44 of the 102
+    cell coordinates below and ordered 81,336 of the first 250,000 queries
+    otherwise, the first at query 6."""
+    q, keys = _audit_queries()
+    grid, vs, pcr, ds = AUDIT_QUERY[:4]
+    cells = torch.arange(-1, 33)[:, None].expand(-1, 3)
+    cell_size = torch.tensor(vs, dtype=torch.float32) * ds
+    origin = torch.tensor(pcr[:3], dtype=torch.float32)
+    assert ((cells.float() + 0.5) * cell_size + origin != pool.voxel_centers(
+        cells, cell_size, origin)).any()  # the product rounded first misplaces centres
+    kt, pgrid = _t(keys), sparse.GridSpec(*grid)
+    found, digests = 0, []
+    for start in range(0, AUDIT_QUERIES, AUDIT_CHUNK):
+        idx, valid, _ = pool.voxel_query(_t(q[start:start + AUDIT_CHUNK]), kt, pgrid,
+                                         *AUDIT_QUERY[1:])
+        digests.append(_block_digests(idx.numpy()))
+        found += int(valid.sum())
+    bad = np.nonzero(np.concatenate(digests) != refs.load(AUDIT_REF)["digests"])[0]
+    assert not len(bad), (f"{len(bad)} of {AUDIT_QUERIES // AUDIT_BLOCK} blocks of "
+                          f"{AUDIT_BLOCK} queries ordered otherwise, the first from query "
+                          f"{bad[0] * AUDIT_BLOCK}")
+    assert 0 < found < AUDIT_QUERIES * 27
+
+
+@pytest.mark.slow
+def test_voxel_query_order_reference_is_regenerated():
+    q, keys = _audit_queries()
+    jax_query = jax.jit(lambda a, b: jpool.voxel_query(a, b, *AUDIT_QUERY)[0])
+    refs.assert_regenerated(AUDIT_REF, {"digests": np.concatenate([
+        _block_digests(np.asarray(jax_query(q[s:s + AUDIT_CHUNK], keys)))
+        for s in range(0, AUDIT_QUERIES, AUDIT_CHUNK)])})
 
 
 def test_center_target_pixels_equal_jitted_jax():
