@@ -35,7 +35,7 @@ raising on failure:
    G1-G4, R1, R2, F1, B4a-c) with nvcc for sm_90a, one process each, side by side, and
    the native host library (cpd_tpu_torch/native/src/pointcloud.cpp) with
    g++ beside them, and prints
-   what ptxas reports per kernel (registers a thread, spills; for each
+   what ptxas reports per kernel (registers a thread, spills, stack frame; for each
    instance of G1-G4 apart, among G4's the transpose that G3 and G4 share)
    and the dynamic shared memory a block of A1, A2 and G1 asks for at the
    widest layer, of G3's f32 product and G4 at P6/P7, and of G2 at P3;
@@ -284,7 +284,9 @@ raising on failure:
     versions, B4a on the same pairs within 2 ulp of its plain version; on
     each recorded overlap (the RoI head's target IoU) B4a. Each timed: the
     launch alone, the whole wrapper (corners and copies) and the plain
-    version, medians of 5 in turns, with a bound. ``--nms`` runs the build,
+    version, medians of 5 in turns, with a bound. First, what ptxas reports
+    for B4's kernels (registers, stack frame, spills): B4a and B4b must have
+    neither a stack frame nor spills. ``--nms`` runs the build,
     these paths alone (the dense-tail predict with its stage ms, the DBSCAN
     predict with its ``iou_nms`` stage and memory, a DBSCAN training forward
     and loss at batch 2, the PointPillars predict, phase 19's NMS calls)
@@ -323,11 +325,14 @@ tail; B4a: the DBSCAN batch-2 step, the RoI head's target IoU) and
 ``launches_by_path`` for every counted path, the launch-alone ms
 (``ms``), the whole wrapper's (``wrapper_ms``) and the plain version's
 summed over that run's recorded calls, and a bound: the boxes read once,
-the output written once, at 3.35 TB/s, against the f32 operations the clip
-formulation needs on these pairs (B4a every pair, B4b the valid pairs
-above the diagonal; per pair 2 an edge pass, 6 a vertex, 8 a crossing, 4 a
-shoelace term, 2 for the area, and 6 for B4b's IoU and test) at 67
-TFLOP/s; B4c is bound by its bytes (every word read once). ``library_ms``
+the output written once, at 3.35 TB/s, against the f32 operations these
+pairs need (B4a every pair, B4b the valid pairs above the diagonal): 8 for
+the disjoint-pair reject (``iou3d.clip_reject``) on each, the clip
+formulation's on each pair the reject lets through (2 an edge pass, 6 a
+vertex, 8 a crossing, 4 a shoelace term, 2 for the area), and 6 for B4b's
+IoU and test, at 67 TFLOP/s (each line also prints the bound of the clip
+on every pair); B4c is bound by its bytes (the words its
+sweep needs, ``b4_suppress_bytes``). ``library_ms``
 null: no PyTorch call computes rotated IoU or NMS.
 """
 import argparse
@@ -657,7 +662,7 @@ def a2_plain(table, idx, found, g_out, out_dtype):
 
 def kernel_resource_lines():
     """What ptxas reports for the kernels of every source (registers a
-    thread, spilled bytes, static shared memory) and, for A1 and A2, whose
+    thread, spilled bytes, stack frame, static shared memory) and, for A1 and A2, whose
     shared memory is dynamic, the bytes a block asks for at the widest
     layer's launch."""
     for name in cuda_build.SOURCES:
@@ -668,11 +673,12 @@ def kernel_resource_lines():
         print(f"{name}: {len(rows)} kernels, {min(r[1] for r in rows)} to "
               f"{max(r[1] for r in rows)} registers a thread, "
               f"{sum(r[2] for r in rows)} bytes spilled, "
+              f"{max(r[4] for r in rows)} bytes of stack frame and "
               f"{max(r[3] for r in rows)} bytes of static shared memory at most")
     for name in ("gather_gemm_flat", "gather_gemm_per_tap", "lane_gather_gemm", "lane_gather"):
-        for kernel, regs, spilled, smem in cuda_build.kernel_resources(name):
+        for kernel, regs, spilled, smem, stack in cuda_build.kernel_resources(name):
             print(f"{name} instance {kernel}: {regs} registers a thread, {spilled} bytes "
-                  f"spilled, {smem} bytes of static shared memory")
+                  f"spilled, {stack} bytes of stack frame, {smem} bytes of static shared memory")
     for code, what in ((1, "bf16"), (0, "f32")):
         tm = a1.a1_tile_rows(1, 24000, 27, 128, 128, 4 - 2 * code)
         plan = a1.a2_plan(48000, 27, 128, 128)
@@ -4435,21 +4441,51 @@ def b4_sorted_operands(boxes, scores, valid, thresh, pre_max_size, use_bev_iou, 
     return nms.gather_rows(boxes[..., :7], order).contiguous(), torch.isfinite(top)
 
 
-def b4_timed(kernel, launch, wrapper, plain, nbytes, ops, what):
+def b4_timed(kernel, launch, wrapper, plain, nbytes, ops, what, clip_all_ops=None):
     """Median device ms of the launch alone and of the whole wrapper
     (``B4_TIMED_REPS`` runs in turns), the plain version's ms (one call: it
     takes up to a second at K = 4096, and has just run in the check) and the
     bound: the larger of ``nbytes`` at 3.35 TB/s and ``ops`` f32 operations
-    at 67 TFLOP/s."""
+    at 67 TFLOP/s. ``clip_all_ops``: the operations with the clip on every
+    pair, whose bound the line prints beside."""
     ms, wrapper_ms = paired_median_ms(launch, wrapper, reps=B4_TIMED_REPS)
     _, plain_ms = timed_once_ms(plain)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_CORE_FLOPS * 1e3
     row = dict(kernel=kernel, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    old = "" if clip_all_ops is None else (
+        f"; the clip on every pair: {max(t_bytes, clip_all_ops / F32_CORE_FLOPS * 1e3):.7f} ms")
     print(f"{kernel} at {what}: launch {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms (medians of "
-          f"{B4_TIMED_REPS}, in turns), plain {plain_ms:.4f} ms; bound {row['bound_ms']:.5f} "
-          f"ms by {row['bound_by']} ({nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP)", flush=True)
+          f"{B4_TIMED_REPS}, in turns), plain {plain_ms:.4f} ms; bound {row['bound_ms']:.7f} "
+          f"ms by {row['bound_by']} ({nbytes / 1e6:.3f} MB, {ops / 1e9:.5f} GFLOP){old}",
+          flush=True)
     return row
+
+
+def b4_pair_ops(a, b, clip_ops):
+    """Each pair's f32 operations in B4a and B4b: the disjoint-pair reject's
+    8 (two differences, three products, two sums, the compare) on every
+    pair, and the clip's (``clip_ops``, from the plain version) only on the
+    pairs the reject lets through (``iou3d.clip_reject``); and the pairs
+    rejected."""
+    rejected = iou3d.clip_reject(a[:, :, None], b[:, None])
+    return 8 + torch.where(rejected, 0, clip_ops), rejected
+
+
+def b4_resources():
+    """B4's kernels as ptxas reports them (registers, stack frame, spills);
+    raises where the clip's kernels (B4a, B4b) have a stack frame or spill:
+    their polygon is to live in registers."""
+    rows = cuda_build.kernel_resources("nms_bev")
+    if not rows:
+        print("B4 ptxas: the build was reused, no report in this process", flush=True)
+        return
+    for kernel, regs, spilled, smem, stack in rows:
+        print(f"B4 ptxas {kernel}: {regs} registers a thread, {stack} bytes of stack frame, "
+              f"{spilled} bytes spilled, {smem} bytes of static shared memory", flush=True)
+    clip = [r for r in rows if "pairwise_overlap_bev" in r[0] or "nms_mask_bev" in r[0]]
+    if len(clip) != 2 or any(r[2] or r[4] for r in clip):
+        raise AssertionError(f"B4a/B4b: a stack frame or spills, or a kernel missing: {clip}")
 
 
 def b4_overlap_check(a, b, what):
@@ -4470,12 +4506,16 @@ def b4_overlap_check(a, b, what):
                              f"(over 2 ulp), NaN elsewhere, or two launches differ")
     operands = iou3d.overlap_operands(a) + iou3d.overlap_operands(b)
     nbytes = (a.shape[0] * (a.shape[1] + b.shape[1]) * 7 + got.numel()) * 4
+    pair_ops, rejected = b4_pair_ops(a, b, ops)
+    rejected = float(rejected.float().mean()) if rejected.numel() else 0.0
     row = b4_timed("B4a", lambda: iou3d.overlap_launch(*operands),
                    lambda: iou3d.pairwise_overlap_bev(a, b),
                    lambda: iou3d.pairwise_overlap_bev_reference(a, b), nbytes,
-                   float(ops.sum()), f"{what} ({tuple(a.shape)} x {tuple(b.shape)})")
+                   float(pair_ops.sum()), f"{what} ({tuple(a.shape)} x {tuple(b.shape)}, "
+                   f"{rejected:.4f} of the pairs rejected)", clip_all_ops=float(ops.sum()))
     row.update(max_abs_err=err.max().item(), pairs=got.numel(), nan_pairs=int(nan.sum()),
-               equal_bits=bool(torch.equal(got.view(torch.int32), ref.view(torch.int32))))
+               equal_bits=bool(torch.equal(got.view(torch.int32), ref.view(torch.int32))),
+               rejected=rejected)
     return row, ops
 
 
@@ -4537,15 +4577,21 @@ def b4_nms_check(boxes, valid, thresh, use_bev_iou, fast, what):
     corners, b7 = iou3d.overlap_operands(boxes)
     ok = valid.to(torch.uint8).contiguous()
     overlap_row, ops = b4_overlap_check(boxes, boxes, what)
-    # the pairs B4b needs: j > i, both valid; each valid pair's clip operations
+    # the pairs B4b needs: j > i, both valid; on each the reject, and the clip
+    # where the reject lets the pair through, then the IoU and its test (6)
     n_valid = valid.sum(1)
     upper = torch.triu(torch.ones((k, k), dtype=torch.bool, device=boxes.device), 1)
     needed = upper & valid[:, :, None] & valid[:, None, :]
-    mask_ops = float(ops[needed].sum()) + 6.0 * float(needed.sum())  # + the IoU and its test
+    pair_ops, rejected = b4_pair_ops(boxes, boxes, ops)
+    n_needed = int(needed.sum())
+    mask_ops = float(pair_ops[needed].sum()) + 6.0 * n_needed
+    share = int(rejected[needed].sum()) / max(n_needed, 1)
     rows = [b4_timed("B4b", lambda: nms.mask_launch(corners, b7, ok, thresh, use_bev_iou),
                      lambda: nms.nms_mask_bev(boxes, valid, thresh, use_bev_iou),
                      lambda: nms.nms_mask_bev_reference(boxes, valid, thresh, use_bev_iou),
-                     bsz * k * 7 * 4 + bsz * k + words.numel() * 8, mask_ops, what),
+                     bsz * k * 7 * 4 + bsz * k + words.numel() * 8, mask_ops,
+                     f"{what} ({share:.4f} of the needed pairs rejected)",
+                     clip_all_ops=float(ops[needed].sum()) + 6.0 * n_needed),
             b4_timed("B4c", lambda: nms.suppress_launch(words, ok, fast),
                      lambda: nms.nms_suppress(words, valid, fast),
                      lambda: nms.nms_suppress_reference(words, valid, fast),
@@ -4571,6 +4617,7 @@ def nms_phase(card):
     call's operands with overlapping copies (``b4_overlapping``) at the same
     B and K must, with words and keep sets exact."""
     t0 = time.perf_counter()
+    b4_resources()
     rows = {}
     for name, calls in B4_RECORDS.items():
         suppressed, first = False, None

@@ -99,12 +99,12 @@ def build(verbose: bool = False) -> float:
 
 def kernel_resources(name: str):
     """[(mangled kernel name, registers a thread, bytes spilled, static
-    shared memory bytes)] of source ``name``, from the ptxas report of a
-    ``build(verbose=True)`` made by this process."""
+    shared memory bytes, stack frame bytes)] of source ``name``, from the
+    ptxas report of a ``build(verbose=True)`` made by this process."""
     pattern = re.compile(
-        r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes spill stores"
+        r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores"
         r"[^\n]*\nptxas info\s*: Used (\d+) registers(?:[^\n]*?, (\d+) bytes smem)?")
-    return [(m[1], int(m[3]), int(m[2]), int(m[4] or 0))
+    return [(m[1], int(m[4]), int(m[3]), int(m[5] or 0), int(m[2]))
             for m in pattern.finditer(build_log.get(name, ""))]
 
 

@@ -7,7 +7,8 @@ Two formulations, as in the JAX package (``boxes_overlap_bev(method=)``):
   (JAX's ``_overlap_bev_clip``). Kernel B4a (``pairwise_overlap_bev``,
   ``csrc/nms_bev.cu``) computes it on the card, batched, one thread a pair;
   ``pairwise_overlap_bev_reference`` is its plain version, the same
-  operations in the same order.
+  operations in the same order. B4a and B4b skip the clip of a pair that
+  ``clip_reject`` finds disjoint, whose clip is exactly 0.0.
 * ``"candidates"``: the intersection polygon of two convex quads is spanned
   by the corners of each inside the other plus the 16 edge-edge
   intersections; its area comes from the sort-free candidate hull
@@ -33,6 +34,11 @@ _PAIR_CHUNK_ELEMS = 1 << 25
 # pairs per chunk of the clip formulation's (pairs, 16) tensors
 _CLIP_CHUNK_PAIRS = 1 << 20
 _CLIP_CAP = 8
+# the disjoint-pair reject (``clip_reject``): a box's least side against its
+# coordinates' scale, and its circle's growth and pad (metres)
+_REJECT_SOLID = 2.0 ** -10
+_REJECT_GROW = 1.0 + 2.0 ** -6
+_REJECT_PAD = 2.0 ** -10
 _OVERLAP_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
 
 
@@ -169,6 +175,33 @@ def _clip_area(ca, cb, count_ops=False):
         acc = acc + torch.where(s < count[..., 0], term[..., s], 0.0)
     area = torch.where(count[..., 0] >= 3, 0.5 * torch.abs(acc), 0.0)
     return (area, ops + 4 * count[..., 0] + 2) if count_ops else area
+
+
+def clip_reject(boxes_a, boxes_b):
+    """(..., 7+) and (..., 7+) boxes, broadcast -> (...) bool: the pairs
+    whose clip (``_clip_area``) kernels B4a and B4b take as exactly 0.0
+    without clipping. Each box has a circle: its centre, and half its
+    footprint's diagonal times 1 + 2^-6, plus 2^-10 m. A pair is rejected
+    where the centres lie further apart than the two radii. A box with a
+    non-finite value, or with dx or dy below (|x| + |y| + 1) * 2^-10, gets a
+    NaN radius and is never rejected: near the f32 spacing of its corners an
+    edge's direction is noise, and a sliver's zero-length edges pass every
+    point, so its clip is an unbounded strip that a far box across it keeps a
+    residue of. The kernels' ``reject_circle`` and ``disjoint`` do the same
+    f32 operations in the same order."""
+
+    def circle(b):
+        b = b[..., :7].float()
+        x, y, dx, dy = b[..., 0], b[..., 1], b[..., 3], b[..., 4]
+        least = (x.abs() + y.abs() + 1.0) * _REJECT_SOLID
+        radius = 0.5 * torch.sqrt(dx * dx + dy * dy) * _REJECT_GROW + _REJECT_PAD
+        solid = torch.isfinite(b).all(-1) & (dx >= least) & (dy >= least)
+        return x, y, torch.where(solid, radius, math.nan)
+
+    xa, ya, ra = circle(boxes_a)
+    xb, yb, rb = circle(boxes_b)
+    ex, ey, reach = xa - xb, ya - yb, ra + rb
+    return ex * ex + ey * ey > reach * reach
 
 
 def _footprint_cap(overlap, boxes_a, boxes_b):

@@ -7,11 +7,16 @@ samples (or classes) in one launch each:
 
 * B4b ``nms_mask_bev``: of score-sorted boxes (B, K, 7), the words (B, K,
   ceil(K/64)) whose bit j of row i is set when j > i, both rows are valid and
-  their rotated IoU (BEV or 3D; the clip formulation of ``ops/iou3d.py``)
-  exceeds the threshold. The float IoU never exists.
+  their rotated IoU (BEV or 3D; the clip formulation of ``ops/iou3d.py``,
+  skipped for the pairs ``iou3d.clip_reject`` finds disjoint) exceeds the
+  threshold. The float IoU never exists. One block a strip of 4 rows of a
+  64 x 64 tile on or above the diagonal; the pairs the reject lets through
+  are clipped from a list, 32 a warp.
 * B4c ``nms_suppress``: keep (B, K) from those words, greedy (a kept row
-  removes the rows its words name) or fast (a row survives when no valid row
-  above it names it: suppressed rows still suppress).
+  removes the rows its words name; one block a sample, the next 64 rows'
+  words prefetched into shared memory, so K is at most 14,400) or fast (a
+  row survives when no valid row above it names it: suppressed rows still
+  suppress; a block owns 4 words of a sample).
 
 A CUDA tensor launches the kernel (``.launches`` counts) or raises; a CPU
 tensor runs the plain version (``nms_mask_bev_reference``,
@@ -32,11 +37,16 @@ from .iou3d import (boxes_aligned_iou_bev, boxes_iou_bev, iou3d_from_overlap,
                     iou_bev_from_overlap, overlap_operands, pairwise_overlap_bev_reference)
 
 _WORD = 64
+_MASK_STRIP = 4  # rows a block of B4b takes of its 64 x 64 tile
 _MASK_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
                                                                ctypes.c_void_p, ctypes.c_void_p]
 _SUPPRESS_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-# the shared memory a block may hold on an H100 (B4c keeps ceil(K/64) words there)
+# the shared memory a block may hold on an H100; B4c's greedy walk keeps a
+# word, ceil(K/64) words and two 64-row slabs of them there: K <= 14,400
 _MAX_SMEM = 232_448
+_GREEDY_MAX_WORDS = (_MAX_SMEM // 8 - 1) // (1 + 2 * _WORD)
+# B4c's fast sweep: a block owns 4 words, the grid's second axis (<= 65535)
+_FAST_MAX_WORDS = 4 * 65535
 
 
 def top_k(values, k: int):
@@ -100,9 +110,11 @@ def mask_launch(corners, boxes, ok, thresh, use_bev_iou=True):
     (B, K, ceil(K/64)) int64 words."""
     bsz, k = ok.shape
     w = mask_words(k)
-    if bsz > 65535 or w > 65535:
-        raise ValueError(f"kernel B4b takes at most 65535 samples and 65535 words, got B={bsz}, "
+    if bsz > 65535 or w * (w + 1) // 2 * (_WORD // _MASK_STRIP) > 2 ** 31 - 1:
+        raise ValueError(f"kernel B4b takes at most 65535 samples and 16383 words, got B={bsz}, "
                          f"K={k}")
+    if corners.data_ptr() % 16:
+        raise ValueError("kernel B4b reads the corners in 16-byte loads: they must be aligned")
     mask = torch.empty((bsz, k, w), dtype=torch.int64, device=ok.device)
     if mask.numel() == 0:
         return mask
@@ -154,8 +166,9 @@ def suppress_launch(words, ok, fast=False):
     """One launch of kernel B4c on contiguous int64 words and a (B, K) uint8
     valid mask (counted in ``nms_suppress.launches``) -> keep (B, K) bool."""
     bsz, k = ok.shape
-    if 8 * (mask_words(k) + (0 if fast else _WORD)) > _MAX_SMEM or bsz > 2 ** 31 - 1:
-        raise ValueError(f"kernel B4c keeps ceil(K/64) words in shared memory: K={k} is too many")
+    if mask_words(k) > (_FAST_MAX_WORDS if fast else _GREEDY_MAX_WORDS) or bsz > 2 ** 31 - 1:
+        raise ValueError(f"kernel B4c takes K up to {64 * _GREEDY_MAX_WORDS} greedy (its shared "
+                         f"memory) and {64 * _FAST_MAX_WORDS} fast, got K={k}")
     keep = torch.empty((bsz, k), dtype=torch.uint8, device=ok.device)
     if keep.numel() == 0:
         return keep.bool()
@@ -172,8 +185,8 @@ def suppress_launch(words, ok, fast=False):
 def nms_suppress(mask, valid, fast=False):
     """(B, K, ceil(K/64)) int64 suppression words, (B, K) bool valid -> keep
     (B, K) bool (see ``nms_suppress_reference``). CUDA tensors run kernel B4c,
-    one block a sample (``nms_suppress.launches`` counts); CPU tensors the
-    plain version."""
+    the batch in one launch (``nms_suppress.launches`` counts); CPU tensors
+    the plain version."""
     bsz, k = valid.shape
     if mask.shape != (bsz, k, mask_words(k)) or mask.dtype != torch.int64:
         raise ValueError(f"want int64 words of {(bsz, k, mask_words(k))}, got {mask.dtype} "

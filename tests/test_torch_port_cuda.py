@@ -1029,6 +1029,34 @@ def _nms_boxes(rng, b, k, spread=None, slivers=0):
     return boxes
 
 
+def _nms_scene(rng, b, k, scene):
+    """(b, k, 7) boxes: ``"mixed"`` as ``_nms_boxes`` (a few slivers at 70 m);
+    ``"disjoint"`` on a 6 m grid, every pair taken by the reject
+    (``iou3d.clip_reject``); ``"slivers"`` boxes around (70, 3) m and, in
+    every other row, a sliver narrower than the f32 spacing whose long axis
+    passes through the box of the row before it, 5-40 m away (its clip keeps
+    a residue, and the reject must pass it)."""
+    if scene == "mixed":
+        return _nms_boxes(rng, b, k, slivers=min(4, k // 8))
+    boxes = _nms_boxes(rng, b, k, spread=30.0)
+    side = int(np.ceil(np.sqrt(max(k, 1))))
+    if scene == "disjoint":
+        cell = np.arange(k)
+        boxes[..., 0] = 6.0 * (cell % side - side / 2)
+        boxes[..., 1] = 6.0 * (cell // side - side / 2)
+        boxes[..., 3:5] = rng.uniform(0.5, 4.0, (b, k, 2))
+        return boxes
+    boxes[..., :2] += (70.0, 3.0)
+    sl = boxes[:, 1::2]
+    along = rng.uniform(5.0, 40.0, sl.shape[:2]) * rng.choice([-1.0, 1.0], sl.shape[:2])
+    src = boxes[:, 0:2 * sl.shape[1]:2]
+    sl[..., 3] = rng.uniform(1e-7, 4e-6, sl.shape[:2])
+    sl[..., 0] = src[..., 0] + along * np.sin(sl[..., 6])
+    sl[..., 1] = src[..., 1] - along * np.cos(sl[..., 6])
+    boxes[:, 1::2] = sl
+    return boxes
+
+
 def _within_ulps(got, ref, ulps=2):
     """|got - ref| within ``ulps`` f32 spacings of ``ref``."""
     spacing = torch.nextafter(ref.abs(), torch.full_like(ref, np.inf)) - ref.abs()
@@ -1060,15 +1088,21 @@ def test_pairwise_overlap_bev_kernel_matches_plain(cuda, b, n, m, slivers):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k", [(1, 1), (1, 63), (2, 64), (3, 65), (2, 500), (1, 4096), (3, 1000)])
+@pytest.mark.parametrize("b,k,scene", [
+    (1, 1, "mixed"), (1, 63, "mixed"), (2, 64, "mixed"), (3, 65, "mixed"), (1, 200, "mixed"),
+    (1, 500, "mixed"), (2, 500, "mixed"), (1, 4096, "mixed"), (2, 4096, "mixed"),
+    (3, 1000, "mixed"), (1, 0, "mixed"), (2, 500, "disjoint"), (2, 4096, "disjoint"),
+    (2, 500, "slivers")])
 @pytest.mark.parametrize("bev", [True, False])
-def test_nms_mask_and_suppress_kernels_equal_plain(cuda, b, k, bev):
+def test_nms_mask_and_suppress_kernels_equal_plain(cuda, b, k, scene, bev):
     """Kernels B4b and B4c against their plain versions on the card: the
     words and both suppressions exactly, a sample with every row invalid,
-    samples with their valid rows cut at different counts."""
-    from cpd_tpu_torch.ops import nms
+    samples with their valid rows cut at different counts; B4a on the same
+    pairs bit for bit (``_nms_scene``: the disjoint-pair reject alone, and
+    slivers across the other boxes' lines)."""
+    from cpd_tpu_torch.ops import iou3d, nms
     rng = np.random.default_rng(k)
-    boxes = torch.from_numpy(_nms_boxes(rng, b, k, slivers=min(4, k // 8))).to(cuda)
+    boxes = torch.from_numpy(_nms_scene(rng, b, k, scene)).to(cuda)
     valid = torch.from_numpy(rng.random((b, k)) < 0.9).to(cuda)
     if b > 1:
         valid[-1] = False
@@ -1083,9 +1117,20 @@ def test_nms_mask_and_suppress_kernels_equal_plain(cuda, b, k, bev):
         assert torch.equal(keep, nms.nms_suppress_reference(words, valid, fast)), fast
         if b > 1:
             assert not keep[-1].any()
-    assert (nms.nms_mask_bev.launches - before[0], nms.nms_suppress.launches - before[1]) == (1, 2)
-    if k > 64:
-        assert bool((words != 0).any())
+    assert (nms.nms_mask_bev.launches - before[0], nms.nms_suppress.launches - before[1]) == (
+        (1, 2) if k else (0, 0))
+    got = iou3d.pairwise_overlap_bev(boxes, boxes)
+    want = iou3d.pairwise_overlap_bev_reference(boxes, boxes)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    rejected = iou3d.clip_reject(boxes[:, :, None], boxes[:, None])
+    apart = ~torch.eye(k, dtype=torch.bool, device=cuda)
+    if scene == "disjoint":
+        assert bool(rejected[:, apart].all()) and not bool(words.ne(0).any())
+    elif scene == "slivers":
+        assert not bool(rejected[:, 1::2].any()) and bool((want[:, 0::2, 1::2] > 0).any())
+    elif k > 64:
+        assert bool((words != 0).any()) and bool(rejected.any()) and not bool(rejected.all())
 
 
 @pytest.mark.cuda

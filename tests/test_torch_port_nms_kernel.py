@@ -15,6 +15,14 @@
   counts; indices and masks exactly, the batched call equal to the looped
   one. ``multi_classes_nms`` and ``weighted_box_fusion`` at a larger size.
 
+* ``ops.iou3d.clip_reject``, the disjoint-pair reject of kernels B4a and
+  B4b, on 1,130,000 seeded pairs (random, circles touching within 1e-3 m,
+  corners pointing at each other, long thin boxes, sides just above the
+  reject's floor at +-75 m, slivers narrower than the f32 spacing across
+  the other box's line, non-finite values): ``_clip_area`` is exactly 0.0 on
+  every pair it rejects, in both orders, and it rejects no pair with a
+  non-finite value or a sliver.
+
 The JAX side is the committed ``tests/torch_port_refs/nms_kernel.npz``; the
 ``slow`` test recomputes it from live JAX. Every input keeps its IoUs more
 than 1e-5 from the threshold, so that an ulp of difference decides nothing.
@@ -336,3 +344,122 @@ def test_wrappers_reject_wrong_operands():
 @pytest.mark.slow
 def test_nms_kernel_reference_regenerated():
     refs.assert_regenerated(REF, jax_reference())
+
+
+def _reject_boxes(rng, n, spread=75.0, log_sides=(-3.0, 3.0)):
+    """``n`` boxes within +-``spread`` m, sides log-uniform in e^``log_sides``."""
+    b = np.zeros((n, 7), np.float32)
+    b[:, :2] = rng.uniform(-spread, spread, (n, 2))
+    b[:, 2] = rng.uniform(-2.0, 4.0, n)
+    b[:, 3:5] = np.exp(rng.uniform(*log_sides, (n, 2)))
+    b[:, 5] = rng.uniform(0.5, 4.0, n)
+    b[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    return b
+
+
+def _reject_radius(b):
+    """The reject's circle radius (``clip_reject``), in f64."""
+    return 0.5 * np.hypot(b[:, 3], b[:, 4]) * (1 + 2.0 ** -6) + 2.0 ** -10
+
+
+def _touching(rng, n, gap=1e-3, corners=False, **kw):
+    """Pairs whose reject circles lie within ``gap`` m of touching (the gap's
+    size log-uniform down to 1e-7 m, either sign); with ``corners`` each box
+    turned so that a corner points at the other."""
+    a, b = _reject_boxes(rng, n, **kw), _reject_boxes(rng, n, **kw)
+    apart = rng.choice([-1.0, 1.0], n) * gap * np.exp(rng.uniform(np.log(1e-4), 0.0, n))
+    dist = _reject_radius(a) + _reject_radius(b) + apart
+    toward = rng.uniform(-np.pi, np.pi, n)
+    b[:, 0] = a[:, 0] + dist * np.cos(toward)
+    b[:, 1] = a[:, 1] + dist * np.sin(toward)
+    if corners:
+        a[:, 6] = toward - np.arctan2(a[:, 4], a[:, 3])
+        b[:, 6] = toward + np.pi - np.arctan2(b[:, 4], b[:, 3])
+    return a, b
+
+
+def _near_floor(rng, n):
+    """Touching pairs at +-75 m with one side of each box within 3 times the
+    reject's floor (|x| + |y| + 1) * 2^-10."""
+    a, b = _touching(rng, n)
+    for box in (a, b):
+        floor = (np.abs(box[:, 0]) + np.abs(box[:, 1]) + 1.0) * 2.0 ** -10
+        box[np.arange(n), 3 + rng.integers(0, 2, n)] = floor * rng.uniform(1.0, 3.0, n)
+    return a, b
+
+
+def _slivers_across(rng, n):
+    """A sliver narrower than the f32 spacing at 40-75 m and a box 5-40 m
+    along its long axis: the sliver's zero-length edges pass every point, so
+    clipping by it leaves a line whose extension crosses the far box."""
+    a = np.zeros((n, 7), np.float32)
+    a[:, :2] = rng.choice([-1.0, 1.0], (n, 2)) * rng.uniform(40.0, 75.0, (n, 2))
+    a[:, 3] = rng.uniform(1e-7, 4e-6, n)
+    a[:, 4] = rng.uniform(1.0, 5.0, n)
+    a[:, 5] = 1.5
+    a[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    along = rng.uniform(5.0, 40.0, n) * rng.choice([-1.0, 1.0], n)
+    b = _reject_boxes(rng, n, log_sides=(0.0, 1.6))
+    b[:, 0] = a[:, 0] - along * np.sin(a[:, 6])
+    b[:, 1] = a[:, 1] + along * np.cos(a[:, 6])
+    return a, b
+
+
+def _non_finite(rng, n):
+    """Far pairs (which the reject takes when finite) with NaN, inf or -inf
+    in one value of one box."""
+    a, b = _touching(rng, n, gap=0.0)
+    b[:, 0] += np.sign(b[:, 0] - a[:, 0]) * 30.0
+    rows = rng.integers(0, 2, n)
+    bad = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32), n)
+    for side, box in enumerate((a, b)):
+        hit = rows == side
+        box[hit, rng.integers(0, 7, int(hit.sum()))] = bad[hit]
+    return a, b
+
+
+def _clip_both_orders(a, b, chunk=1 << 17):
+    ca, cb = iou3d.bev_corners(a), iou3d.bev_corners(b)
+    return [torch.cat([iou3d._clip_area(x[i:i + chunk], y[i:i + chunk])
+                       for i in range(0, max(x.shape[0], 1), chunk)])
+            for x, y in ((ca, cb), (cb, ca))]
+
+
+REJECT_FAMILIES = {  # name -> (pairs, least share rejected)
+    "random": (300_000, 0.5), "touching": (300_000, 0.2), "corners": (200_000, 0.2),
+    "thin": (150_000, 0.1), "near_floor": (150_000, 0.2), "slivers": (20_000, 0.0),
+    "non_finite": (10_000, 0.0)}
+
+
+def test_clip_reject_takes_only_pairs_whose_clip_is_zero():
+    """The premise of kernels B4a's and B4b's reject: on every pair that
+    ``clip_reject`` rejects, the clip (both orders) is exactly 0.0, so
+    skipping it changes no bit. It rejects no pair with a sliver (where the
+    clip does keep a residue) or with a non-finite value."""
+    rng = np.random.default_rng(19)
+    make = {"random": lambda n: (_reject_boxes(rng, n), _reject_boxes(rng, n)),
+            "touching": lambda n: _touching(rng, n),
+            "corners": lambda n: _touching(rng, n, corners=True),
+            "thin": lambda n: _touching(rng, n, corners=True, log_sides=(-3.0, 3.0 + 3.0)),
+            "near_floor": lambda n: _near_floor(rng, n),
+            "slivers": lambda n: _slivers_across(rng, n),
+            "non_finite": lambda n: _non_finite(rng, n)}
+    total = 0
+    for name, (n, least) in REJECT_FAMILIES.items():
+        a, b = (_t(x) for x in make[name](n))
+        rejected = iou3d.clip_reject(a, b)
+        assert torch.equal(rejected, iou3d.clip_reject(b, a)), name
+        assert float(rejected.float().mean()) >= least, (name, float(rejected.float().mean()))
+        for clip in _clip_both_orders(a[rejected], b[rejected]):
+            assert int(clip.ne(0).sum()) == 0, (name, float(clip.abs().max()))
+        total += n
+        if name == "slivers":
+            assert not rejected.any()
+            # the trap is real: circles apart, yet the clip by the sliver keeps a residue
+            far = torch.from_numpy(_reject_radius(a.numpy()) + _reject_radius(b.numpy())
+                                   < np.hypot(*(a.numpy() - b.numpy())[:, :2].T))
+            assert float(far.float().mean()) > 0.5
+            assert int(_clip_both_orders(b[far], a[far])[0].ne(0).sum()) > 0
+        if name == "non_finite":
+            assert not rejected.any()
+    assert total >= 1_000_000
