@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ops                             # phase 19 alone
     python3 chip_smoke.py --parity                          # phases 20 and 21 alone
     python3 chip_smoke.py --nms                             # B4's paths and phase 22 alone
+    python3 chip_smoke.py --factory                         # phase 15 alone
 
 Drives the port's paths at the bench configuration of the JAX package
 (bench.py: 3 classes, range +-75.2 x [-2, 4] m, voxels (0.1, 0.1, 0.15) m,
@@ -161,20 +162,29 @@ raising on failure:
     the builder CLI runs it: a drive of 20 frames of 200k points
     (``make_lidar_sequence``: the ego about 1 m a frame, parked and moving
     objects; depth cut from Waymo's ~198 frames) written with poses and no
-    labels; kernel R1 (PPScore's radius count) against its plain version on
-    the middle frame's 4 windows of 5 frames (exact counts, a second launch
+    labels; first, what ptxas reports for kernels R1 and R2 (registers,
+    stack frame, spills: neither may have a stack frame or spill); kernel
+    R1 (PPScore's radius count) against its plain version on the middle
+    frame's 4 windows of 5 frames (exact counts, a second launch
     bit-equal); ``create_ppscore`` with the R1 and R2 launches counted
     around it (20 and 0); ``create_outline_boxes`` with the cproto dataset
-    yaml (MFCF + C_PROTO; R2 launches counted, none of R1), the largest
-    cloud it clusters recorded; kernel R2 (DBSCAN) against its plain version
-    on that cloud (labels equal, twice); ``create_track_groundtruth_database``
-    on the port's dataset. Gates: every frame's PPScore file (f16, finite),
+    yaml (MFCF + C_PROTO; R2 launches counted, none of R1), every R2 call
+    recorded (its points and clouds, the launch's device ms between CUDA
+    events and the wrapper's host ms, synchronised: their sums by calling
+    function beside the record of one call a C-PROTO box); kernel R2
+    (DBSCAN) against its plain version on the largest cloud it clustered
+    and, in one segmented launch, on the C-PROTO call with the most box
+    clouds (labels equal, twice); ``create_track_groundtruth_database`` on
+    the port's dataset. Gates: every frame's PPScore file (f16, finite),
     labels of every frame with (n, 7) finite boxes, a track of
     ``remove_short_track`` (2) frames or more, a prototype bank, the gt
-    database's schema. Prints boxes a frame, tracks, banks, the launches and
-    the seconds of each builder function and of each stage inside them;
+    database's schema, at most ``R2_CALLS_A_FRAME`` (2) R2 launches a
+    frame, some of them segmented and some not (``dbscan_labels_batched.
+    launches`` counts the segmented ones where they launch). Prints boxes a frame, tracks, banks, the launches
+    and the seconds of each builder function and of each stage inside them;
     then 2 steps of the training CLI on the shipped cproto yaml on those
-    labels and banks (finite losses).
+    labels and banks (finite losses). ``--factory`` runs the build and this
+    phase alone.
 16. KITTI and the native host library (it runs right after phase 15): (a)
     ``native.points_in_boxes_mask`` on the bench frame and 64 drawn boxes
     against its NumPy plain version (masks equal; host ms of each, median
@@ -305,7 +315,9 @@ bound are summed over one launch at each of the kernel's probes (``uses``
 lists them, and the 9 layer shapes beside A1). No single PyTorch call
 computes a gather-GEMM, so ``library_ms`` is null except for G4, the gather
 alone, where it is ``torch.index_select``'s time. R1 and R2 (phase 15) give
-the launches of ``create_ppscore`` and ``create_outline_boxes``, the median
+the launches of ``create_ppscore`` and ``create_outline_boxes`` (R2 twice:
+all its calls, with the largest cloud's times, and its segmented calls, with
+the times of one frame's box clouds), the median
 ms of the launch alone (``ms``) and of the whole wrapper with its grid and
 sorts (``wrapper_ms``), the plain version's ms of one call at the checked
 shapes, and a bound from those inputs: bytes at 3.35 TB/s against the pairs
@@ -486,6 +498,12 @@ FACTORY_BANK_MARGIN = 0.5
 FACTORY_LOSS_BOUND = 1e3
 FACTORY_LOSS_BOUNDED = ("rcnn_reg0", "rcnn_reg1", "proto_loss", "rcnn_cls0", "rcnn_cls1")
 CPROTO_DATA_YAML = "tools/cfgs/dataset_configs/waymo_unsupervised_cproto.yaml"
+# phase 15's record of kernel R2's calls over create_outline_boxes when
+# C-PROTO made one call a box (calls, summed launch ms, summed wrapper ms, the
+# card), printed beside this run's; the gate on R2's calls a frame (MFCF's and
+# C-PROTO's segmented call)
+R2_BOX_CALLS = (2241, 4318.887, 6529.642, "NVIDIA H100 80GB HBM3, 700.00 W")
+R2_CALLS_A_FRAME = 2
 KITTI_YAML = "tools/cfgs/models/voxel_rcnn_cproto_center_kitti.yaml"
 KITTI_FRAMES = 8
 KITTI_POINTS = 120_000  # an HDL-64E scan
@@ -2790,6 +2808,7 @@ def factory_r1_check(frames, poses, dev, card):
                              f"{int((out != ref).any(1).sum())} queries (or between launches)")
     ops = r1.radius_operands(query, support, ids, w, 0.3)
     ms, wrapper_ms = paired_median_ms(lambda: r1.radius_launch(ops), run)
+    device_profile(run, "R1 call", wrapper_ms)
     tests = grid_pair_tests(query, 0.3 * r1.CELL_MARGIN, w, (support, ids))
     pairs = int(out.sum())
     nbytes = query.numel() * 4 + support.numel() * 4 + ids.numel() * 4 + out.numel() * 4
@@ -2816,36 +2835,146 @@ def factory_r2_check(cloud, dev, card):
                              f"{int((out != ref).sum())} of {len(out)} points (or between launches)")
     ops = r2.dbscan_operands(pts, eps)
     ms, wrapper_ms = paired_median_ms(lambda: r2.dbscan_launch(ops, min_samples), run)
+    device_profile(run, "R2 call", wrapper_ms)
     tests = grid_pair_tests(pts, eps * r1.CELL_MARGIN)
     pairs = (len(r2.neighbour_pairs(pts, eps)[0]) - len(pts)) // 2
     nbytes = pts.numel() * 8 + out.numel() * 4
     print(f"R2 dbscan ({card}): the largest cloud of create_outline_boxes: {len(pts)} points, "
           f"eps {eps}, min_samples {min_samples}: {int(out.max()) + 1} clusters, "
           f"{int((out < 0).sum())} noise, {pairs} pairs within eps, {tests} pair tests a walk "
-          f"of the kernel (it walks three times: count, union, label); equal to plain on every "
-          f"point, bit-equal twice; launch {ms:.3f} ms, wrapper {wrapper_ms:.3f} ms (medians of "
-          f"5), plain {plain_ms:.1f} ms (one call)", flush=True)
+          f"of the kernel's cells; equal to plain on every point, bit-equal twice; launch "
+          f"{ms:.3f} ms, wrapper {wrapper_ms:.3f} ms (medians of 5), plain {plain_ms:.1f} ms "
+          f"(one call)", flush=True)
     return ms, wrapper_ms, plain_ms, nbytes, 8.0 * pairs
 
 
-class LargestCloud:
-    """While active, ``outline.dbscan_labels`` (the call the factory's
-    clustering makes) keeps the largest (points, eps, min_samples) it is
-    given in ``self.cloud``."""
+def calling_function(skip_files):
+    """Name of the nearest function on the stack outside ``skip_files``."""
+    frame = sys._getframe(1)
+    while frame is not None and Path(frame.f_code.co_filename).name in skip_files:
+        frame = frame.f_back
+    return frame.f_code.co_name if frame is not None else "?"
+
+
+def factory_r2_segmented_check(batch, card):
+    """Kernel R2's segmented launch against its plain version (each segment
+    alone) on ``batch`` = (points, offsets, eps, min_samples), the C-PROTO
+    call with the most box clouds: labels equal on every point, twice.
+    Returns (launch ms, wrapper ms, plain ms, bytes, operations): 8 f64
+    operations for each pair within eps of one segment, counted once."""
+    pts, offsets, eps, min_samples = batch
+    run = lambda: r2.dbscan_labels_batched(pts, offsets, eps, min_samples)
+    out, again = run(), run()
+    ref, plain_ms = timed_once_ms(
+        lambda: r2.dbscan_batched_reference(pts, offsets, eps, min_samples))
+    if not (torch.equal(out, ref) and torch.equal(out, again)):
+        raise AssertionError(f"R2 segmented: labels differ from the plain version on "
+                             f"{int((out != ref).sum())} of {len(out)} points (or between "
+                             f"launches)")
+    offs = r2.segment_offsets_of(offsets, len(pts))
+    ops = r2.dbscan_operands(pts, eps, offs)
+    ms, wrapper_ms = paired_median_ms(lambda: r2.dbscan_launch(ops, min_samples), run)
+    device_profile(run, "segmented R2 call", wrapper_ms)
+    bounds = offs.tolist()
+    pairs = sum((len(r2.neighbour_pairs(pts[a:b], eps)[0]) - (b - a)) // 2
+                for a, b in zip(bounds[:-1], bounds[1:]))
+    sizes = offs[1:] - offs[:-1]
+    clusters = sum(int(out[a:b].max()) + 1 for a, b in zip(bounds[:-1], bounds[1:]) if b > a)
+    print(f"R2 dbscan segmented ({card}): one frame's C-PROTO box clouds in one launch: "
+          f"{len(sizes)} segments of {int(sizes.min())}-{int(sizes.max())} points, {len(pts)} "
+          f"in all, eps {eps}, min_samples {min_samples}: {clusters} clusters, "
+          f"{int((out < 0).sum())} noise, {pairs} pairs within eps; equal to plain on every "
+          f"point, bit-equal twice; launch {ms:.3f} ms, wrapper {wrapper_ms:.3f} ms (medians "
+          f"of 5), plain {plain_ms:.1f} ms (one call)", flush=True)
+    return ms, wrapper_ms, plain_ms, pts.numel() * 8 + out.numel() * 4, 8.0 * pairs
+
+
+class R2Calls:
+    """While active, every call that the factory's clustering makes into
+    kernel R2 (the entries that ``outline`` imported from ``ops.dbscan``:
+    ``dbscan_labels``, ``dbscan_labels_batched``) is recorded in
+    ``self.calls`` as (calling function, entry, points, clouds, launch ms,
+    wrapper ms): the launch is ``r2.dbscan_launch`` between two CUDA events
+    (the kernels and whatever the card waits for between them), the wrapper
+    the host clock from the call to its labels on the card, synchronised.
+    The largest single cloud is kept in ``self.cloud`` as (points, eps,
+    min_samples), the segmented call with the most segments in
+    ``self.batch`` as (points, offsets, eps, min_samples)."""
+
+    ENTRIES = ("dbscan_labels", "dbscan_labels_batched")
 
     def __enter__(self):
-        self.cloud, self.saved = None, outline.dbscan_labels
+        self.calls, self.cloud, self.batch, self._launch_ms = [], None, None, 0.0
+        self.saved = {name: getattr(outline, name) for name in self.ENTRIES
+                      if hasattr(outline, name)}
+        self.saved_launch = r2.dbscan_launch
+        launch = self.saved_launch
 
-        def recording(points, eps, min_samples):
-            if self.cloud is None or len(points) > len(self.cloud[0]):
-                self.cloud = (points.clone(), eps, min_samples)
-            return self.saved(points, eps, min_samples)
+        def timed_launch(*args, **kw):
+            start = cuda_event()
+            out = launch(*args, **kw)
+            end = cuda_event()
+            end.synchronize()
+            self._launch_ms += start.elapsed_time(end)
+            return out
 
-        outline.dbscan_labels = recording
+        def recording(name, entry):
+            def call(points, *args):
+                offsets = args[0] if len(args) == 3 else None
+                segments = 1 if offsets is None else len(offsets) - 1
+                if offsets is None and (self.cloud is None or len(points) > len(self.cloud[0])):
+                    self.cloud = (points.clone(), *args)
+                if offsets is not None and (self.batch is None or
+                                            segments > len(self.batch[1]) - 1):
+                    self.batch = (points.clone(), np.array(offsets), *args[1:])
+                caller = calling_function({"outline.py", Path(__file__).name})
+                self._launch_ms = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = entry(points, *args)
+                torch.cuda.synchronize()
+                self.calls.append((caller, name, len(points), segments, self._launch_ms,
+                                   (time.perf_counter() - t0) * 1e3))
+                return out
+            return call
+
+        for name, entry in self.saved.items():
+            setattr(outline, name, recording(name, entry))
+        r2.dbscan_launch = timed_launch
         return self
 
     def __exit__(self, *exc):
-        outline.dbscan_labels = self.saved
+        for name, entry in self.saved.items():
+            setattr(outline, name, entry)
+        r2.dbscan_launch = self.saved_launch
+
+    def summary(self, card):
+        """Prints the calls, their summed launch and wrapper ms and the
+        largest cloud, in all and by calling function, beside the record
+        of one call a C-PROTO box; returns (calls, summed launch ms, summed
+        wrapper ms)."""
+        by = {}
+        for caller, _, n, segments, launch, wrapper in self.calls:
+            row = by.setdefault(caller, [0, 0, 0, 0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += segments
+            row[2] += n
+            row[3] = max(row[3], n)
+            row[4] += launch
+            row[5] += wrapper
+        launch_ms = sum(c[4] for c in self.calls)
+        wrapper_ms = sum(c[5] for c in self.calls)
+        print(f"R2 calls over create_outline_boxes ({card}): {len(self.calls)} calls of "
+              f"{sum(c[3] for c in self.calls)} clouds, {sum(c[2] for c in self.calls)} points "
+              f"in all, the largest call {max((c[2] for c in self.calls), default=0)}; summed "
+              f"launch {launch_ms:.3f} ms, summed wrapper {wrapper_ms:.3f} ms (one call a "
+              f"C-PROTO box, as recorded before the segmented call on {R2_BOX_CALLS[3]}: "
+              f"{R2_BOX_CALLS[0]} calls, {R2_BOX_CALLS[1]:.3f} ms, {R2_BOX_CALLS[2]:.3f} ms); "
+              f"by calling function: " + "; ".join(
+                  f"{k}: {v[0]} calls of {v[1]} clouds, {v[2]} points, largest call {v[3]}, "
+                  f"launch {v[4]:.3f} ms, wrapper {v[5]:.3f} ms" for k, v in by.items()),
+              flush=True)
+        return len(self.calls), launch_ms, wrapper_ms
 
 
 def check_factory_outputs(seq_dir, seq, n_frames, n_points, min_track):
@@ -2912,6 +3041,21 @@ def check_factory_outputs(seq_dir, seq, n_frames, n_points, min_track):
     return [len(labels[i]["outline_box"]) for i in range(n_frames)], long_tracks, n_banks
 
 
+def factory_resources():
+    """Kernels R1 and R2 as ptxas reports them (registers, stack frame,
+    spills); raises where one has a stack frame or spills."""
+    for name in ("radius_count", "dbscan"):
+        rows = cuda_build.kernel_resources(name)
+        if not rows:
+            print(f"{name} ptxas: the build was reused, no report in this process", flush=True)
+        for kernel, regs, spilled, smem, stack in rows:
+            print(f"{name} ptxas {kernel}: {regs} registers a thread, {stack} bytes of stack "
+                  f"frame, {spilled} bytes spilled, {smem} bytes of static shared memory",
+                  flush=True)
+        if any(r[2] or r[4] for r in rows):
+            raise AssertionError(f"{name}: a kernel with a stack frame or spills: {rows}")
+
+
 def factory_phase(dev, card):
     """Phase 15, the pseudo-label factory on the card, as the builder CLI
     runs it: a drive of ``FACTORY_FRAMES`` frames of 200k points written
@@ -2926,6 +3070,7 @@ def factory_phase(dev, card):
     frames or more, a prototype bank, nonzero R1 and R2 launches, finite
     losses. Returns the kernels-line entries of R1 and R2."""
     t0 = time.perf_counter()
+    factory_resources()
     cfg = load_file(CPROTO_DATA_YAML)
     min_track = int(cfg["GeneratorConfig"].get("remove_short_track", 2))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2940,6 +3085,7 @@ def factory_phase(dev, card):
 
         stages = {}
         r1.radius_count.launches = r2.dbscan_labels.launches = 0
+        r2.dbscan_labels_batched.launches = 0
         timer = PhaseTimer()
         t1 = time.perf_counter()
         builder.create_ppscore(root, [EVAL_SEQ], device=dev, timer=timer)
@@ -2948,19 +3094,29 @@ def factory_phase(dev, card):
         pp_stages = dict(timer.totals)
 
         r1.radius_count.launches = r2.dbscan_labels.launches = 0
+        r2.dbscan_labels_batched.launches = 0
         timer = PhaseTimer()
         t1 = time.perf_counter()
-        with LargestCloud() as largest:
+        with R2Calls() as r2_calls:
             builder.create_outline_boxes(root, [EVAL_SEQ], cfg, device=dev, timer=timer)
         stages["create_outline_boxes"] = time.perf_counter() - t1
         ob_launches = (r1.radius_count.launches, r2.dbscan_labels.launches)
+        ob_segmented = r2.dbscan_labels_batched.launches  # a part of ob_launches[1]
         ob_stages = dict(timer.totals)
-        r2_numbers = factory_r2_check(largest.cloud, dev, card)
+        print(f"factory builder ({card}): create_ppscore {stages['create_ppscore']:.2f} s, "
+              f"create_outline_boxes {stages['create_outline_boxes']:.2f} s", flush=True)
+        r2_calls.summary(card)
+        r2_numbers = factory_r2_check(r2_calls.cloud, dev, card)
+        segmented = (factory_r2_segmented_check(r2_calls.batch, card)
+                     if r2_calls.batch is not None else None)
         if pp_launches[0] != FACTORY_FRAMES or pp_launches[1] or ob_launches[0] \
-                or ob_launches[1] == 0:
+                or not 0 < ob_launches[1] <= R2_CALLS_A_FRAME * FACTORY_FRAMES \
+                or not 0 < ob_segmented < ob_launches[1] or segmented is None:
             raise AssertionError(f"factory: (R1, R2) launches {pp_launches} in create_ppscore "
                                  f"(want ({FACTORY_FRAMES}, 0)), {ob_launches} in "
-                                 f"create_outline_boxes (want (0, > 0))")
+                                 f"create_outline_boxes (want (0, 1 to "
+                                 f"{R2_CALLS_A_FRAME * FACTORY_FRAMES})); segmented R2 "
+                                 f"launches {ob_segmented} (want 1 to {ob_launches[1] - 1})")
 
         sets = ["DATA_CONFIG.DATA_PATH", str(tmp), "DATA_CONFIG.SAMPLED_INTERVAL.train", "1",
                 "DATA_CONFIG.SAMPLED_INTERVAL.test", "1"]
@@ -2981,7 +3137,8 @@ def factory_phase(dev, card):
         print(f"factory ({card}): {FACTORY_FRAMES} frames of {N_POINTS} points, written in "
               f"{t_write:.1f} s; boxes a frame {per_frame}; {long_tracks} tracks of "
               f"{min_track}+ frames; {n_banks} prototype banks; gt database {db}; launches (R1, "
-              f"R2): create_ppscore {pp_launches}, create_outline_boxes {ob_launches}; "
+              f"R2): create_ppscore {pp_launches}, create_outline_boxes {ob_launches}, "
+              f"{ob_segmented} of its R2 launches segmented; "
               f"training sample 0: {int(sample['gt_valid'].sum())} labelled boxes", flush=True)
         print("factory stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
               + "; inside create_ppscore: " + ", ".join(f"{k} {v:.2f}" for k, v in
@@ -3014,8 +3171,13 @@ def factory_phase(dev, card):
                       "pl.pallas_call)", pp_launches[0], *r1_numbers, F32_CORE_FLOPS),
         factory_entry("dbscan", "factory: create_outline_boxes", "cpd_tpu_torch/csrc/dbscan.cu",
                       "cpd_tpu/unsupervised/outline.py:32 (dbscan_cluster, sklearn on the "
-                      "host; no pl.pallas_call)", ob_launches[1], *r2_numbers,
+                      "host; no pl.pallas_call)", ob_launches[1] - ob_segmented, *r2_numbers,
                       F64_CORE_FLOPS),
+        factory_entry("dbscan", "factory: create_outline_boxes, C-PROTO's box clouds of a "
+                      "frame in one segmented launch", "cpd_tpu_torch/csrc/dbscan.cu",
+                      "cpd_tpu/unsupervised/outline.py:32 (dbscan_cluster, sklearn on the "
+                      "host; no pl.pallas_call)", ob_segmented,
+                      *segmented, F64_CORE_FLOPS),
     ]
 
 
@@ -4715,6 +4877,9 @@ def main():
     parser.add_argument("--nms", action="store_true",
                         help="run only the paths that launch kernels B4a-c (counted and timed) "
                              "and phase 22, after the build, and print their kernels line")
+    parser.add_argument("--factory", action="store_true",
+                        help="run only phase 15, the pseudo-label factory (after the build), "
+                             "and print its kernels line")
     parser.add_argument("--parity", action="store_true",
                         help="run only phases 20 (bench-scale parity against the committed JAX "
                              "reference) and 21 (dense-tail training), after the build")
@@ -4750,6 +4915,10 @@ def main():
         return
     if args.nms:
         print(json.dumps({"kernels": nms_paths(dev, card)}))
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.factory:
+        print(json.dumps({"kernels": factory_phase(dev, card)}))
         print(f"total {time.perf_counter() - t_start:.1f} s")
         return
     if args.parity:

@@ -28,7 +28,8 @@ KERNELS = ("gather_gemm", "gather_gemm_dw", "gather_gemm_flat", "gather_gemm_per
            "nms_bev")
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in KERNELS}
 # headers that the sources include (part of every library's key)
-HEADERS = (_PKG / "csrc" / "gather_common.cuh", _PKG / "csrc" / "lane_common.cuh")
+HEADERS = (_PKG / "csrc" / "gather_common.cuh", _PKG / "csrc" / "lane_common.cuh",
+           _PKG / "csrc" / "cell_walk.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

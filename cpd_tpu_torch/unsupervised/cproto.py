@@ -222,9 +222,13 @@ class CProtoRefiner:
         nearest-height high-quality prototype's, else the predefined size) --
         other classes keep their own l/w; then the floor-trimmed, ground-
         removed largest cluster re-scores CSS and, for Vehicles, re-orients
-        (when CSS > OrienThresh) and ALWAYS density-drifts the center."""
+        (when CSS > OrienThresh) and ALWAYS density-drifts the center. A
+        frame's boxes go in three passes: every box's ground-removed cloud,
+        one DBSCAN call for all of them (``clustering_batched``), then each
+        box's scoring and corrections; a box's result depends on its own
+        cloud alone, as in the reference's one loop."""
         from .ground import GroundSegmenter, remove_ground_banded
-        from .outline import clustering, smooth_points
+        from .outline import clustering_batched, smooth_points
 
         segmenter = GroundSegmenter()
         for f, frame in enumerate(frames):
@@ -232,6 +236,7 @@ class CProtoRefiner:
             lab = labels[f]
             boxes = lab["outline_box"].astype(np.float64)
             scores = np.asarray(lab["outline_score"], np.float32).copy()
+            todo = []  # (row, class, the box so far, its ground-removed cloud or None)
             for i, box in enumerate(boxes):
                 cls = str(lab["outline_cls"][i])
                 tid = int(lab["outline_ids"][i])
@@ -260,6 +265,7 @@ class CProtoRefiner:
                 else:
                     new_box = np.array([box[0], box[1], z, box[3], box[4], h,
                                         box[6]])
+                ng = None
                 if len(low):
                     m = (low[:, 2] > z_min + 0.2) & (low[:, 2] < z_max)
                     trimmed = low[m]
@@ -269,17 +275,20 @@ class CProtoRefiner:
                         min_threshold=self.ground_min_threshold,
                         min_distance=self.ground_min_distance)
                         if len(trimmed) else trimmed)
-                    if len(ng) > 10:
-                        clusters = clustering(ng, self.cluster_eps, 10,
-                                              min_points=self.cluster_min_points,
-                                              device=self.device)
-                        if clusters:
-                            mc = max(clusters, key=len)
-                            scores[i] = self.css(mc, new_box, cls)
-                            if cls == "Vehicle":
-                                if scores[i] > self.orien_thresh:
-                                    new_box = correct_orientation(new_box, mc)
-                                new_box = density_guided_drift(new_box, mc)
+                todo.append((i, cls, new_box, ng if ng is not None and len(ng) > 10 else None))
+            clustered = [t for t in todo if t[3] is not None]
+            found = clustering_batched([t[3] for t in clustered], self.cluster_eps, 10,
+                                       min_points=self.cluster_min_points, device=self.device)
+            clusters_of = {t[0]: c for t, c in zip(clustered, found)}
+            for i, cls, new_box, _ in todo:
+                clusters = clusters_of.get(i)
+                if clusters:
+                    mc = max(clusters, key=len)
+                    scores[i] = self.css(mc, new_box, cls)
+                    if cls == "Vehicle":
+                        if scores[i] > self.orien_thresh:
+                            new_box = correct_orientation(new_box, mc)
+                        new_box = density_guided_drift(new_box, mc)
                 boxes[i] = new_box
             lab["outline_box"] = boxes.astype(np.float32)
             lab["outline_score"] = scores

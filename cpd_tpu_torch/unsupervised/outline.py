@@ -12,7 +12,8 @@ box_fit / box_fit_DGD (:809,:848).
 DBSCAN runs through kernel R2 (``ops.dbscan.dbscan_labels``) on the CUDA
 card, on the CPU through its plain version when ``device="cpu"`` is asked
 for: both give sklearn's labels, which the JAX package takes from sklearn
-where it is installed. ``voxel_sampling`` keeps the same points as JAX's
+where it is installed. ``clustering_batched`` clusters many clouds in one
+call of the kernel (``dbscan_labels_batched``), each alone. ``voxel_sampling`` keeps the same points as JAX's
 row-wise ``np.unique`` through one scalar key per voxel.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 from scipy.spatial import ConvexHull, cKDTree
 
-from ..ops.dbscan import dbscan_labels
+from ..ops.dbscan import dbscan_labels, dbscan_labels_batched
 from ..utils.device import resolve_device
 
 # size priors (meters, l/w/h) per class -- the commonsense sizes CPD uses
@@ -58,7 +59,29 @@ def clustering(points: np.ndarray, eps: float = 0.7, min_samples: int = 10,
     (clutter_min_points) points AND the cluster's ABSOLUTE max z is below
     ``max_height`` (discard_max_height gates z, not vertical extent). DBSCAN
     runs on ``device`` (default: the CUDA card)."""
-    labels = dbscan_cluster(points, eps, min_samples, device)
+    return _kept_clusters(points, dbscan_cluster(points, eps, min_samples, device), min_points,
+                          max_height)
+
+
+def clustering_batched(clouds: List[np.ndarray], eps: float = 0.7, min_samples: int = 10,
+                       min_points: int = 10, max_height: float = 4.0,
+                       device=None) -> List[List[np.ndarray]]:
+    """``[clustering(c, eps, min_samples, min_points, max_height, device) for
+    c in clouds]`` with one DBSCAN call for all the clouds
+    (``dbscan_labels_batched``: each cloud is clustered alone)."""
+    lengths = [len(c) for c in clouds]
+    if not sum(lengths):
+        return [[] for _ in clouds]
+    xyz = torch.from_numpy(np.concatenate(
+        [np.asarray(c, np.float64)[:, :3].reshape(-1, 3) for c in clouds]))
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    labels = dbscan_labels_batched(xyz.to(resolve_device(device)), offsets, eps,
+                                   min_samples).cpu().numpy()
+    return [_kept_clusters(c, labels[a:b], min_points, max_height)
+            for c, a, b in zip(clouds, offsets[:-1], offsets[1:])]
+
+
+def _kept_clusters(points, labels, min_points, max_height):
     out = []
     for cid in range(labels.max() + 1 if len(labels) else 0):
         m = labels == cid

@@ -834,18 +834,25 @@ def _clusters_with_shared_borders(seed, n_centers=40, per=60, noise=400, spread=
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m,windows", [(20_000, 100_000, 4), (3_000, 40_000, 12), (5, 0, 3)])
-def test_radius_count_kernel_matches_plain(cuda, n, m, windows):
+@pytest.mark.parametrize("n,m,windows,layout", [(20_000, 100_000, 4, "uniform"),
+                                                (3_000, 40_000, 12, "uniform"),
+                                                (5, 0, 3, "uniform"),
+                                                (2_000, 30_000, 3, "one_cell")])
+def test_radius_count_kernel_matches_plain(cuda, n, m, windows, layout):
     """Kernel R1 against its plain version: the counts equal exactly (the
     same f32 arithmetic, no FMA contraction), also for queries placed on
-    cell edges and for windows with no support point; a second launch gives
-    the same counts."""
+    cell edges, for windows with no support point and for one cell holding
+    every support point (its queries' items cut into many pieces); a second
+    launch gives the same counts."""
     from cpd_tpu_torch.ops.radius import radius_count, radius_count_reference
 
     rng = np.random.default_rng(n)
     query = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
     query[: n // 2] = (np.round(query[: n // 2] / 0.3) * 0.3).astype(np.float32)
     support = rng.uniform(-6, 6, (m, 3)).astype(np.float32)
+    if layout == "one_cell":
+        support = rng.uniform(0.01, 0.29, (m, 3)).astype(np.float32)
+        query[: n // 2] = support[: n // 2]
     window = rng.integers(0, max(windows - 1, 1), m).astype(np.int32)  # the last window empty
     q, s, w = (torch.from_numpy(a).to(cuda) for a in (query, support, window))
     before = radius_count.launches
@@ -858,21 +865,83 @@ def test_radius_count_kernel_matches_plain(cuda, n, m, windows):
     assert radius_count.launches - before == (2 if n and m else 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_dbscan_kernel_matches_plain(cuda, seed):
-    """Kernel R2 against its plain version on blobs that share border points:
-    labels equal on every point, twice (roots are minimum indices, so the
-    labels do not depend on thread order); an empty cloud gives no label."""
-    from cpd_tpu_torch.ops.dbscan import dbscan_labels, dbscan_reference
+def _dbscan_case(case, rng):
+    """(points, segment offsets or None) of a card case: blobs that share
+    border points (the list route); a dense ball of about 104M neighbour
+    pairs (the walk route where the card has only ``WALK_SPARE`` bytes to
+    give);
+    120 segments with empty, one-point, all-noise and identical ones (the
+    segmented launch)."""
+    if case.startswith("blobs"):
+        return _clusters_with_shared_borders(int(case[-1])), None
+    if case == "walk":
+        n = 2 ** 13 + 2_000
+        ball = rng.normal(0, 1, (n, 3))
+        ball *= (0.18 * rng.uniform(0, 1, (n, 1)) ** (1 / 3)) / np.linalg.norm(ball, axis=1,
+                                                                                keepdims=True)
+        return np.concatenate([ball, _clusters_with_shared_borders(5)]), None
+    clouds = [c + rng.normal(0, 0.3, (int(rng.integers(1, 400)), 3))
+              for c in rng.uniform(-60, 60, (112, 3))]
+    clouds += [np.zeros((0, 3))] * 3 + [np.array([[1.0, 2.0, 3.0]])] * 2
+    clouds += [rng.uniform(-20, 20, (40, 3)), clouds[7].copy(), clouds[7].copy()]
+    rng.shuffle(clouds)
+    return np.concatenate(clouds), np.concatenate([[0], np.cumsum([len(c) for c in clouds])])
 
-    pts = torch.from_numpy(_clusters_with_shared_borders(seed)).to(cuda)
-    out = dbscan_labels(pts, 0.4, 5)
-    again = dbscan_labels(pts, 0.4, 5)
-    ref = dbscan_reference(pts, 0.4, 5)
+
+# what the card has left to give while the walk case runs: less than the
+# ball's list (8 bytes a pair, ``dbscan.pair_list``) needs
+WALK_SPARE = 2 ** 28
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["blobs0", "blobs1", "blobs2", "walk", "segments"])
+def test_dbscan_kernel_matches_plain(cuda, case):
+    """Kernel R2 against its plain version: labels equal on every point,
+    twice (roots are minimum indices, so the labels do not depend on thread
+    order), by the list route (blobs that share border points), by the walk
+    route (a dense ball whose list does not fit the ``WALK_SPARE`` bytes
+    that a block of memory leaves the card: the route follows the operands'
+    size and the memory alone; each launch's route is recorded) and in one
+    segmented launch of 120 clouds, each equal to its plain version alone
+    (one launch counted, on both counters); an empty cloud gives no
+    label."""
+    from unittest import mock
+
+    from cpd_tpu_torch.ops import dbscan as r2
+    from cpd_tpu_torch.ops.dbscan import (dbscan_batched_reference, dbscan_labels,
+                                          dbscan_labels_batched, dbscan_reference)
+
+    pts, offsets = _dbscan_case(case, np.random.default_rng(7))
+    pts = torch.from_numpy(pts).to(cuda)
+    hog = None
+    if offsets is None:
+        run = lambda: dbscan_labels(pts, 0.4, 5)
+        ref = dbscan_reference(pts, 0.4, 5)
+        if case == "walk":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            hog = torch.empty(torch.cuda.mem_get_info(cuda)[0] - WALK_SPARE, dtype=torch.uint8,
+                              device=cuda)
+    else:
+        run = lambda: dbscan_labels_batched(pts, offsets, 0.4, 5)
+        ref = dbscan_batched_reference(pts, offsets, 0.4, 5)
+    listed, pair_list = [], r2.pair_list
+
+    def recording(pairs, device):
+        got = pair_list(pairs, device)
+        listed.append(got is not None)
+        return got
+
+    before = dbscan_labels.launches, dbscan_labels_batched.launches
+    with mock.patch.object(r2, "pair_list", recording):
+        out, again = run(), run()
     torch.cuda.synchronize()
+    del hog
+    assert listed == [case != "walk"] * 2
+    assert dbscan_labels.launches - before[0] == 2
+    assert dbscan_labels_batched.launches - before[1] == (2 if case == "segments" else 0)
     assert out.dtype == torch.int32 and torch.equal(out, ref) and torch.equal(out, again)
-    assert int(out.max()) >= 10
+    assert int(out.max()) >= (1 if case == "segments" else 10)
     assert dbscan_labels(torch.zeros((0, 3), dtype=torch.float64, device=cuda), 0.4, 5).numel() == 0
 
 

@@ -9,7 +9,15 @@ the rule for those points is exercised. Labels must equal on every point:
 ``sklearn.cluster.DBSCAN``, JAX's ``outline.dbscan_cluster`` (sklearn where
 it is installed, as on the machines that run these tests) and JAX's fallback
 ``outline._dbscan_bfs``.
+
+The segmented entry (``dbscan_labels_batched``, its plain version a loop of
+``dbscan_reference``) equals each segment alone, and so does kernel R2's
+walk restated on the CPU from the wrapper's own segmented operands (each
+segment's own grid, its columns after the previous segment's):
+``outline.clustering_batched`` equals ``clustering`` cloud by cloud.
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +25,8 @@ from scipy.spatial import cKDTree
 from sklearn.cluster import DBSCAN
 
 from cpd_tpu.unsupervised import outline as joutline
+from cpd_tpu_torch.ops import dbscan as r2
+from cpd_tpu_torch.ops import radius as r1
 from cpd_tpu_torch.ops.dbscan import dbscan_labels, dbscan_reference, neighbour_pairs
 from cpd_tpu_torch.unsupervised import outline as poutline
 from tests.test_torch_port_ppscore import one_torch_thread  # noqa: F401
@@ -90,3 +100,150 @@ def test_dbscan_wrapper_checks_its_operands():
     with pytest.raises(ValueError):
         dbscan_labels(torch.zeros((4, 2), dtype=torch.float64), 0.5, 5)
     assert dbscan_reference(torch.zeros((3, 3), dtype=torch.float64), 0.5, 3).tolist() == [0] * 3
+
+
+def _bounds_on_cpu(cells, offsets, longest):
+    """``r2.segment_bounds`` (a kernel on the card) on CPU tensors:
+    ``scatter_reduce`` over each segment, (0, 0) for an empty one."""
+    n_seg = len(offsets) - 1
+    seg = torch.repeat_interleave(torch.arange(n_seg), offsets[1:] - offsets[:-1])
+    index = seg[:, None].expand(-1, 3)
+    zeros = torch.zeros((n_seg, 3), dtype=torch.int64)
+    return (zeros.scatter_reduce(0, index, cells, "amin", include_self=False),
+            zeros.scatter_reduce(0, index, cells, "amax", include_self=False))
+
+
+def _operands_on_cpu(points, offsets, eps):
+    """``r2.dbscan_operands`` on CPU tensors, its segment bounds by
+    ``_bounds_on_cpu``."""
+    with mock.patch.object(r2, "segment_bounds", _bounds_on_cpu):
+        return r2.dbscan_operands(points, eps, None if offsets is None
+                                  else r2.segment_offsets_of(offsets, len(points)))
+
+
+def _restated_labels(points, offsets, eps, min_samples):
+    """Kernel R2 restated on the CPU from the wrapper's operands: the pairs of
+    the walk (``radius.walk_pairs``) tested in the kernel's f64 order, core
+    points by count, components with their smallest original index as root,
+    border points to the smallest root among their core neighbours, each
+    segment numbered from the rank of its first point."""
+    ops = _operands_on_cpu(points, offsets, eps)
+    t, _, u = r1.walk_pairs(ops.plan, r1.cell_runs_reference(ops.plan))
+    e = ops.pts[t, :3] - ops.pts[u, :3]
+    hit = (e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1]) + e[:, 2] * e[:, 2] <= ops.eps2
+    t, u = t[hit], u[hit]
+    n = len(points)
+    core = torch.bincount(t, minlength=n) >= min_samples
+    perm = ops.perm.long()
+    both = core[t] & core[u]
+    i, j = perm[t[both]], perm[u[both]]
+    root = torch.arange(n)
+    while True:
+        new = root.scatter_reduce(0, i, root[j], reduce="amin")
+        new = new[new]
+        if torch.equal(new, root):
+            break
+        root = new
+    core_orig = torch.zeros(n, dtype=torch.bool)
+    core_orig[perm] = core
+    is_root = (core_orig & (root == torch.arange(n))).long()
+    rank = torch.cumsum(is_root, 0) - is_root
+    best = torch.full((n,), n)
+    border = ~core[t] & core[u]
+    best.scatter_reduce_(0, t[border], root[perm[u[border]]], reduce="amin")
+    base = 0 if ops.seg_first is None else rank[ops.seg_first.long()]
+    by_sorted = torch.where(core, rank[root[perm]] - base,
+                            torch.where(best < n, rank[best.clamp(max=n - 1)] - base, -1))
+    out = torch.empty(n, dtype=torch.int64)
+    out[perm] = by_sorted
+    return out.int()
+
+
+def _segments(case, rng):
+    """Clouds a few meters wide spread over +-50 m, with the case's
+    segments among them."""
+    clouds = []
+    for k in range(12):
+        centers = rng.uniform(-1.5, 1.5, (3, 3)) + rng.uniform(-50, 50, 3)
+        clouds.append(np.concatenate([c + rng.normal(0, 0.3, (int(rng.integers(5, 60)), 3))
+                                      for c in centers]))
+    extra = {"empty": [np.zeros((0, 3))] * 3,
+             "one_point": [np.array([[1.0, 2.0, 3.0]]), np.array([[-4.0, 0.5, 1.0]])],
+             "all_noise": [rng.uniform(-20, 20, (40, 3))],
+             "identical": [clouds[3].copy(), clouds[3].copy()]}[case]
+    clouds[2:2] = extra[: len(extra) // 2]
+    clouds += extra[len(extra) // 2:]
+    return clouds
+
+
+@pytest.mark.parametrize("case", ["empty", "one_point", "all_noise", "identical"])
+def test_dbscan_batched_equals_each_segment_alone(case):
+    """The segmented plain version (the CPU route of ``dbscan_labels_batched``)
+    equals ``dbscan_reference`` on each segment alone, and sklearn where the
+    segment has points; the kernel's walk restated from the segmented
+    operands gives the same labels: empty and one-point segments, a segment
+    of noise alone, two segments with the same coordinates that must not
+    link."""
+    rng = np.random.default_rng(len(case))
+    clouds = _segments(case, rng)
+    pts = torch.from_numpy(np.concatenate(clouds))
+    offsets = np.concatenate([[0], np.cumsum([len(c) for c in clouds])])
+    got = r2.dbscan_labels_batched(pts, offsets, 0.5, 5)
+    assert got.dtype == torch.int32 and got.shape == (len(pts),)
+    for c, a, b in zip(clouds, offsets[:-1], offsets[1:]):
+        want = dbscan_reference(torch.from_numpy(c), 0.5, 5)
+        assert torch.equal(got[a:b], want)
+        if len(c):
+            np.testing.assert_array_equal(want.numpy(), DBSCAN(eps=0.5, min_samples=5).fit(c).labels_)
+    assert torch.equal(_restated_labels(pts, offsets, 0.5, 5), got)
+    assert int(got.max()) >= 1 and int((got < 0).sum()) > 0
+    if case == "identical":  # segments 2 and the last hold the same points
+        assert torch.equal(got[offsets[2]:offsets[3]], got[offsets[-2]:])
+        assert int(got[offsets[-2]:].max()) >= 0
+    if case == "all_noise":
+        assert bool((got[offsets[-2]:] == -1).all())
+
+
+def test_dbscan_restated_walk_equals_plain_on_one_cloud():
+    """One cloud (no segments): the kernel's walk restated equals the plain
+    version on blobs that share border points."""
+    pts = torch.from_numpy(_cloud(4, n_centers=20, per=40, noise=200, spread=6.0))
+    want = dbscan_reference(pts, 0.4, 5)
+    assert torch.equal(_restated_labels(pts, None, 0.4, 5), want) and int(want.max()) >= 5
+
+
+def test_dbscan_one_cloud_grid_is_grid_cells():
+    """One cloud is one segment whose grid is ``radius.grid_cells``': the
+    same sorted cell keys, column table and rows, and no segment starts;
+    ``segment_bounds`` refuses CPU tensors."""
+    pts = torch.from_numpy(_cloud(5, n_centers=6, per=30, noise=60, spread=5.0))
+    ops = _operands_on_cpu(pts, None, 0.4)
+    (cells,), dims = r1.grid_cells((pts,), 0.4 * r1.CELL_MARGIN)
+    keys = torch.sort(r1.cell_keys(cells, dims)).values
+    assert torch.equal(ops.plan.keys, keys) and ops.plan.NZ == dims[2]
+    assert torch.equal(ops.plan.start, r1.column_table(keys // dims[2], dims[0] * dims[1]))
+    assert bool((ops.plan.gny == dims[1]).all()) and ops.seg_first is None
+    with pytest.raises(ValueError):
+        r2.segment_bounds(cells, torch.tensor([0, len(pts)]), len(pts))
+
+
+def test_clustering_batched_equals_clustering():
+    """``outline.clustering_batched`` gives, cloud by cloud, the clusters of
+    ``outline.clustering``, empty clouds included."""
+    rng = np.random.default_rng(11)
+    clouds = _segments("empty", rng) + _segments("one_point", rng)
+    got = poutline.clustering_batched(clouds, 0.5, 10, min_points=5, device="cpu")
+    assert len(got) == len(clouds) and sum(len(g) for g in got) > 0
+    for c, g in zip(clouds, got):
+        want = poutline.clustering(c, 0.5, 10, min_points=5, device="cpu")
+        assert len(g) == len(want)
+        for x, y in zip(g, want):
+            np.testing.assert_array_equal(x, y)
+    assert poutline.clustering_batched([np.zeros((0, 3))], device="cpu") == [[]]
+
+
+def test_dbscan_batched_checks_its_offsets():
+    pts = torch.zeros((4, 3), dtype=torch.float64)
+    for bad in ([0, 3], [1, 4], [0, 3, 2, 4], [4]):
+        with pytest.raises(ValueError):
+            r2.dbscan_labels_batched(pts, bad, 0.5, 2)

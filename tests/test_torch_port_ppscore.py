@@ -12,6 +12,10 @@ plain version on the CPU) against the JAX package's, on seeded inputs.
   window; the port's counts equal ``cKDTree``'s on every point.
 * A query at a cell edge where the native count is wrong and the port's is
   right documents that fault.
+* Kernel R1's host side on the CPU: the column table that the wrapper builds
+  equals ``torch.searchsorted`` over the sorted keys, and the kernel's walk,
+  restated from the same runs and pieces (``radius.walk_pairs``), counts what
+  the plain version counts.
 """
 import shutil
 
@@ -24,6 +28,7 @@ from scipy.spatial import cKDTree
 from cpd_tpu import native
 from cpd_tpu.unsupervised import driver as jdriver
 from cpd_tpu.unsupervised import ppscore as jpp
+from cpd_tpu_torch.ops import radius as r1
 from cpd_tpu_torch.ops.radius import radius_count
 from cpd_tpu_torch.unsupervised import driver as pdriver
 from cpd_tpu_torch.unsupervised import ppscore as ppp
@@ -157,3 +162,65 @@ def test_ppscore_needs_a_card_unless_the_cpu_is_asked_for():
     frames, poses = _small_sequence(2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ppp.ppscore_for_frame(frames[0], poses[0], frames, poses)
+
+
+def _r1_case(case):
+    """(query, support, window, n_windows) of a table case: points on cell
+    faces, a window with no point, every support point in one cell."""
+    rng = np.random.default_rng(len(case))
+    n, m, windows = 600, 6000, 4
+    query = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    support = rng.uniform(-2, 2, (m, 3)).astype(np.float32)
+    window = rng.integers(0, windows - 1, m).astype(np.int32)  # the last window empty
+    if case == "faces":
+        cell = np.float32(0.3 * r1.CELL_MARGIN)
+        query[: n // 2] = np.round(query[: n // 2] / cell) * cell
+        support[: m // 2] = np.round(support[: m // 2] / cell) * cell
+    elif case == "one_cell":
+        support = (np.float32(0.05) + rng.uniform(0, 0.2, (m, 3))).astype(np.float32)
+        query[: n // 2] = support[: n // 2]
+    return (torch.from_numpy(query), torch.from_numpy(support), torch.from_numpy(window),
+            windows)
+
+
+@pytest.mark.parametrize("case", ["faces", "empty_window", "one_cell"])
+def test_r1_column_table_and_restated_walk(case):
+    """The column table of ``radius_operands`` (built on the CPU by the
+    wrapper's own code) equals ``torch.searchsorted`` over the sorted keys
+    on every column: the occupied ones, the padded border (empty), the last
+    window's (no point). The kernel's walk restated from the runs and pieces
+    covers each item's candidates once and counts exactly the plain
+    version's counts."""
+    query, support, window, windows = _r1_case(case)
+    ops = r1.radius_operands(query, support, window, windows, 0.3)
+    plan = ops.plan
+    nx, ny, nz = ops.dims
+    cols = plan.keys // nz
+    start = plan.start.long()
+    assert torch.equal(start, torch.searchsorted(cols, torch.arange(nx * ny * windows + 1)))
+    occupied = torch.unique(cols)
+    assert torch.equal(start[occupied + 1] - start[occupied],
+                       torch.unique_consecutive(cols, return_counts=True)[1])
+    gx, gy = (occupied % (nx * ny)) // ny, occupied % ny
+    assert bool(((gx > 0) & (gx < nx - 1) & (gy > 0) & (gy < ny - 1)).all())
+    last = (windows - 1) * nx * ny
+    assert int(start[last]) == int(start[-1]) == len(support)
+    assert int((plan.gstart[1:] - plan.gstart[:-1]).max()) <= r1.GROUP
+    runs = r1.cell_runs_reference(plan)
+    qpos, win, cand = r1.walk_pairs(plan, runs)
+    items = (len(plan.gstart) - 1) * windows
+    per_item = runs[:, 1].reshape(items, 9).long().sum(1)
+    want = (per_item * (plan.gstart[1:] - plan.gstart[:-1]).long().repeat_interleave(windows))
+    assert len(qpos) == int(want.sum())
+    e = ops.q[qpos, :3] - ops.pts[cand, :3]
+    hit = (e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1]) + e[:, 2] * e[:, 2] <= torch.tensor(
+        ops.r2, dtype=torch.float32)
+    assert torch.equal(plan.keys[cand] // nz // (nx * ny), win)  # a window's own candidates
+    counts = torch.zeros((len(query), windows), dtype=torch.int64)
+    counts.index_put_((qpos[hit], win[hit]), torch.ones(int(hit.sum()), dtype=torch.int64),
+                      accumulate=True)
+    got = torch.zeros_like(counts)
+    got[ops.qorder] = counts
+    want = r1.radius_count_reference(query, support, window, windows, 0.3)
+    assert torch.equal(got.int(), want) and int(want.sum()) > 0
+    assert int(want[:, -1].abs().sum()) == 0
