@@ -7,6 +7,8 @@
     python3 chip_smoke.py --parity                          # phases 20 and 21 alone
     python3 chip_smoke.py --nms                             # B4's paths and phase 22 alone
     python3 chip_smoke.py --factory                         # phase 15 alone
+    python3 chip_smoke.py --rulebooks                       # phase 23 alone, path times
+    python3 chip_smoke.py --path-times                      # the path times alone
 
 Drives the port's paths at the bench configuration of the JAX package
 (bench.py: 3 classes, range +-75.2 x [-2, 4] m, voxels (0.1, 0.1, 0.15) m,
@@ -33,7 +35,7 @@ raising on failure:
 
 1. card: needs CUDA; prints the card's name and power limit;
 2. build: compiles every kernel source under cpd_tpu_torch/csrc/ (A1, A2,
-   G1-G4, R1, R2, F1, B4a-c) with nvcc for sm_90a, one process each, side by side, and
+   G1-G4, R1, R2, F1, B4a-c, B1a-B2) with nvcc for sm_90a, one process each, side by side, and
    the native host library (cpd_tpu_torch/native/src/pointcloud.cpp) with
    g++ beside them, and prints
    what ptxas reports per kernel (registers a thread, spills, stack frame; for each
@@ -301,6 +303,27 @@ raising on failure:
     predict with its ``iou_nms`` stage and memory, a DBSCAN training forward
     and loss at batch 2, the PointPillars predict, phase 19's NMS calls)
     and this phase.
+23. kernels B1a, B1b and B2, rulebook construction (``rulebook_phase``,
+    right after 6): first what ptxas reports for the four kernels (``B1
+    ptxas`` lines: none may have a stack frame or spill); then the predicts
+    of both tails (batch 1) and a training step (``mm=True``, batch 2: both
+    branches, the transposes), each counted
+    (``rb_counted``: the counts set to 0 just before, read just after; a
+    ``B1 launches, <path>`` line; (B1a, B1b, B2) must be (1, 5, 2) with the
+    dense tail, (1, 8, 4) with the sparse tail and (2, 22, 7) for the step)
+    with the operands of each call and each branch call kept
+    (``TableRecorder``). Then every book of those runs bit-equal to the plain
+    twins of ``ops/sparse.py`` (on the CPU, on copies of the same keys: found,
+    idx where found, out_keys, out_valid), each path's branch calls again
+    under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), each
+    kernel call equal to its plain version (``ops/rulebook.py``'s
+    ``*_reference`` on the same operands), and the main path's calls (the
+    dense-tail predict) timed: the wrapper's device ms (a spin ahead),
+    its host ms a call, the plain version's ms, the bound (bytes at 3.35
+    TB/s). ``--rulebooks`` runs the build, this phase on models of its own
+    and the path times (``path_times``: each predict's ms, stage ms, busy
+    ms and idle share, the step's ms and busy ms); ``--path-times`` the
+    build and the path times alone, which run in the parent tree too.
 
 The last two lines of stdout are the card line and a JSON object; the line
 before them is the kernels JSON. For each use of A1 and A2 it gives the
@@ -345,7 +368,21 @@ vertex, 8 a crossing, 4 a shoelace term, 2 for the area), and 6 for B4b's
 IoU and test, at 67 TFLOP/s (each line also prints the bound of the clip
 on every pair); B4c is bound by its bytes (the words its
 sweep needs, ``b4_suppress_bytes``). ``library_ms``
-null: no PyTorch call computes rotated IoU or NMS.
+null: no PyTorch call computes rotated IoU or NMS. B1a, B1b and B2 (phase
+23) give the launches of the dense-tail predict's counted run and
+``launches_by_path`` for the three counted paths (B2's count is calls of its
+wrapper, each of which launches two kernels, ``dilate`` and ``compact``, with
+a ``torch.cumsum`` between them; B1a's wrapper launches one, ``set_bits``,
+and a ``cumsum`` after it), the device ms of the
+wrapper's launches (``ms``), its host ms a call (``wrapper_ms``) and the plain
+version's ms, summed over that run's calls, ``max_abs_err`` the largest
+difference of any output element from the plain version over every checked
+call of the three paths (0: the check asks for equal integers), and a bound
+of bytes alone at 3.35 TB/s: B1a the keys read and the words and prefixes written, B1b the row
+keys and the table words (with their prefixes) its taps touch read and
+idx, found and valid written, B2 the input words read and the output words,
+prefixes, keys and valid flags written; ``library_ms`` null (no PyTorch
+call builds a rulebook).
 """
 import argparse
 import ast
@@ -372,7 +409,7 @@ from cpd_tpu_torch.config import ConfigDict, cfg_from_list, cfg_from_yaml_file
 from cpd_tpu_torch.datasets import build_dataloader
 from cpd_tpu_torch.datasets.box_np import points_in_boxes_mask_fast
 from cpd_tpu_torch.datasets.registry import build_dataset
-from cpd_tpu_torch.models import build_network
+from cpd_tpu_torch.models import backbone3d, build_network
 from cpd_tpu_torch.models.backbone3d import build_branch_rulebooks, stage_grids
 from cpd_tpu_torch.models.bev import height_compression
 from cpd_tpu_torch.models.anchor_head import point_density_anchor_mask
@@ -4863,6 +4900,343 @@ def nms_paths(dev, card):
     return nms_phase(card)
 
 
+RB_SRC = "cpd_tpu_torch/csrc/rulebook.cu"
+RB_KERNELS = (("stage_table", "B1a", "cpd_tpu/ops/sparse.py:180"),
+              ("lookup_taps", "B1b", "cpd_tpu/ops/sparse.py:246"),
+              ("downsample", "B2", "cpd_tpu/ops/sparse.py:484"))
+RB_MAIN_PATH = "predict, dense tail"
+TRAIN_PATH = f"train step, batch {TRAIN_BATCH}"
+# (B1a, B1b, B2) calls of one counted run: a table for each branch, a lookup
+# a book (not the flipped submanifold transposes), an output set a strided
+# conv; the train step's light branch has no conv_out
+RB_WANT = {"predict, dense tail": (1, 5, 2), "predict, sparse tail": (1, 8, 4),
+           TRAIN_PATH: (2, 12 + 10, 4 + 3)}
+RB_TIMED_REPS = 5
+RB_PATH_LOOPS = 5
+
+
+def _stage_tables():
+    """``cpd_tpu_torch.ops.rulebook``, imported at first use: ``--path-times``
+    also runs in a tree without kernels B1a-B2 (the parent, in turns)."""
+    from cpd_tpu_torch.ops import rulebook
+    return rulebook
+
+
+def rb_counts():
+    st = _stage_tables()
+    return st.stage_table.launches, st.lookup_taps.launches, st.downsample.launches
+
+
+class TableRecorder:
+    """Stands in for ``backbone3d.stage_tables`` and its
+    ``build_branch_rulebooks`` while active: passes every call on, and keeps
+    each branch call's arguments and books and the operands of each B1a,
+    B1b and B2 call inside it (the tensors themselves: the builders write
+    none of their inputs)."""
+
+    def __init__(self):
+        self.branches, self.calls = [], {"B1a": [], "B1b": [], "B2": []}
+
+    def __enter__(self):
+        self.module, self.branch = backbone3d.stage_tables, backbone3d.build_branch_rulebooks
+
+        def branch_call(keys, grid, caps, *args, **kwargs):
+            books = self.branch(keys, grid, caps, *args, **kwargs)
+            self.branches.append((keys, grid, caps, args, kwargs, books))
+            return books
+
+        backbone3d.stage_tables, backbone3d.build_branch_rulebooks = self, branch_call
+        return self
+
+    def __exit__(self, *exc):
+        backbone3d.stage_tables, backbone3d.build_branch_rulebooks = self.module, self.branch
+
+    def stage_table(self, keys, grid):
+        self.calls["B1a"].append((keys, grid))
+        return self.module.stage_table(keys, grid)
+
+    def subm_rulebook(self, keys, table, kernel=(3, 3, 3)):
+        self.calls["B1b"].append((keys, table.grid, table, self.module.SUBM, kernel))
+        return self.module.subm_rulebook(keys, table, kernel)
+
+    def conv_rulebook(self, table, kernel, stride, padding, out_cap):
+        book, out_table = self.module.conv_rulebook(table, kernel, stride, padding, out_cap)
+        self.calls["B2"].append((table, kernel, stride, padding, out_cap))
+        self.calls["B1b"].append((book.out_keys, out_table.grid, table, self.module.STRIDED,
+                                  kernel, stride, padding))
+        return book, out_table
+
+    def inverse_rulebook(self, in_keys, in_grid, out_table, kernel, stride, padding):
+        self.calls["B1b"].append((in_keys, in_grid, out_table, self.module.INVERSE, kernel,
+                                  stride, padding))
+        return self.module.inverse_rulebook(in_keys, in_grid, out_table, kernel, stride, padding)
+
+
+def rb_resources():
+    """What ptxas reports for B1a's, B1b's and B2's four kernels (registers,
+    stack frame, spills); raises where one has a stack frame or spills (B2's
+    dilation keeps no array) or is missing."""
+    rows = cuda_build.kernel_resources("rulebook")
+    if not rows:
+        print("B1 ptxas: the build was reused, no report in this process", flush=True)
+        return
+    for kernel, regs, spilled, smem, stack in rows:
+        print(f"B1 ptxas {kernel}: {regs} registers a thread, {stack} bytes of stack frame, "
+              f"{spilled} bytes spilled, {smem} bytes of static shared memory", flush=True)
+    if len(rows) != 4 or any(r[2] or r[4] for r in rows):
+        raise AssertionError(f"B1a-B2: a stack frame or spills, or a kernel missing: {rows}")
+
+
+def rb_counted(path, fn, records):
+    """``fn()`` with B1a's, B1b's and B2's counts set to 0 just before and
+    read just after, its operands recorded under ``path``; raises unless the
+    counts are ``RB_WANT[path]``."""
+    st = _stage_tables()
+    st.stage_table.launches = st.lookup_taps.launches = st.downsample.launches = 0
+    with TableRecorder() as rec:
+        out = fn()
+    torch.cuda.synchronize()
+    got = rb_counts()
+    records[path] = (got, rec)
+    print(f"B1 launches, {path}: (B1a, B1b, B2) = {got}", flush=True)
+    if got != RB_WANT[path]:
+        raise AssertionError(f"{path}: (B1a, B1b, B2) launched {got}, want {RB_WANT[path]}")
+    return out
+
+
+def rb_same_book(got, want, what):
+    """Two rulebooks equal: found, idx where found, out_keys, out_valid."""
+    for field in ("found", "out_keys", "out_valid"):
+        if not torch.equal(getattr(got, field).cpu(), getattr(want, field).cpu()):
+            raise AssertionError(f"{what}: {field} differs from the plain twin")
+    found = got.found.cpu()
+    if not torch.equal(got.idx.cpu()[found], want.idx.cpu()[found]):
+        raise AssertionError(f"{what}: idx differs from the plain twin where found")
+
+
+def rb_books_against_twins(path, rec):
+    """Every book of the path's branch calls against the plain twins of
+    ``ops/sparse.py`` (run on the CPU on copies of the same keys)."""
+    n = 0
+    for i, (keys, grid, caps, args, kwargs, books) in enumerate(rec.branches):
+        twins = backbone3d.build_branch_rulebooks(keys.cpu(), grid, caps, *args, **kwargs)
+        if set(twins) != set(books):
+            raise AssertionError(f"{path}: books {sorted(books)} against {sorted(twins)}")
+        for name in twins:
+            rb_same_book(books[name], twins[name], f"{path}, branch call {i}, {name}")
+        n += len(twins)
+    print(f"B1 books, {path}: {n} books of {len(rec.branches)} branch calls (keys "
+          f"{[tuple(b[0].shape) for b in rec.branches]}) equal to the plain twins", flush=True)
+
+
+def rb_sync_guard(path, rec):
+    """The path's branch calls once more under
+    ``torch.cuda.set_sync_debug_mode("error")``: raises on a host sync."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for keys, grid, caps, args, kwargs, _ in rec.branches:
+            backbone3d.build_branch_rulebooks(keys, grid, caps, *args, **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"B1 sync guard, {path}: {len(rec.branches)} branch calls without a host sync",
+          flush=True)
+
+
+def rb_nbytes(tag, args, out):
+    """The bytes a call needs to move: inputs read once, outputs written
+    once. B1b reads the table words (and their prefixes) that its taps
+    touch, not the whole table; B2 reads every input word (each lies in some
+    output word's field) and no prefix."""
+    st = _stage_tables()
+    size = lambda t: t.numel() * t.element_size()  # noqa: E731
+    if tag == "B1a":
+        return size(args[0]) + size(out.words) + size(out.prefix)
+    if tag == "B2":
+        table, words = args[0], out[0]
+        return size(table.words) + size(words.words) + size(words.prefix) + size(out[1]) + \
+            size(out[2])
+    rows, row_grid, table, mode, *geom = args
+    w, _, ok, _ = st.tap_words(rows, row_grid, table.grid, mode, *geom)
+    n_words = int(torch.unique(w[ok] + torch.arange(w.shape[0], device=w.device).view(
+        -1, 1, 1).expand_as(w)[ok] * table.words.shape[1]).numel())
+    return size(rows) + 8 * n_words + sum(size(t) for t in out)
+
+
+def rb_check(tag, args):
+    """One recorded call: the kernel's result against its plain version on
+    the same operands (equal) -> (the result, the largest absolute
+    difference of any output element, as integers)."""
+    st = _stage_tables()
+    name = {t: n for n, t, _ in RB_KERNELS}[tag]
+    out = getattr(st, name)(*args)
+    ref = getattr(st, f"{name}_reference")(*args)
+    torch.cuda.synchronize()
+    pairs = ([(out.words, ref.words), (out.prefix, ref.prefix)] if tag == "B1a" else
+             list(zip(out, ref)) if tag == "B1b" else
+             [(out[0].words, ref[0].words), (out[0].prefix, ref[0].prefix), (out[1], ref[1]),
+              (out[2], ref[2])])
+    err = max((float((a.long() - b.long()).abs().max()) for a, b in pairs if a.numel()),
+              default=0.0)
+    if err or not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{tag}: differs from its plain version by {err} at {args[1:]}")
+    return out, err
+
+
+def rb_timed(tag, args, out):
+    """Median device ms of the wrapper's launches (a spin ahead of each
+    reading), its host ms a call, the plain version's ms, and the bound."""
+    st = _stage_tables()
+    name = {t: n for n, t, _ in RB_KERNELS}[tag]
+    fn, plain = getattr(st, name), getattr(st, f"{name}_reference")
+    ms, plain_ms = paired_median_ms(lambda: fn(*args), lambda: plain(*args), reps=RB_TIMED_REPS)
+    wrapper_ms = wrapper_host_us(lambda: fn(*args), calls=50) / 1e3
+    nbytes = rb_nbytes(tag, args, out)
+    return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, nbytes=nbytes,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def rb_describe(tag, args):
+    if tag == "B1a":
+        return f"keys {tuple(args[0].shape)} on {tuple(args[1])}"
+    if tag == "B2":
+        return f"{tuple(args[0].grid)} k{args[1]} s{args[2]} p{args[3]} cap {args[4]}"
+    mode = ("subm", "strided", "inverse")[args[3]]
+    return f"{mode} rows {tuple(args[0].shape)} on {tuple(args[1])}, table {tuple(args[2].grid)}"
+
+
+def rulebook_phase(dev, card, batch, dense_model, sparse_model):
+    """Phase 23: kernels B1a, B1b and B2 on the paths that build rulebooks:
+    the predicts of both tails (batch 1) and a training step (``mm=True``,
+    batch 2: both branches, the transposes). Each path's run is counted
+    (``RB_WANT``) and recorded; then every book of it against the plain
+    twins, the branch calls again under the sync guard, each kernel call
+    against its plain version, and the main path's calls timed. Returns the
+    kernels-line entries of B1a, B1b and B2."""
+    t0 = time.perf_counter()
+    rb_resources()
+    records = {}
+    with torch.no_grad():
+        for path, model in ((RB_MAIN_PATH, dense_model), ("predict, sparse tail", sparse_model)):
+            model.predict(batch)  # warm-up
+            rb_counted(path, lambda: model.predict(batch), records)
+    model = VoxelRCNN(**dict(BENCH, mm=True))
+    model.load_state_dict(seeded_state_dict(model, 0), strict=True)
+    state = init_state(model, OPT_CFG, total_steps=100, device=dev)
+    train_batch = to_device(make_train_batch(0, TRAIN_BATCH, N_POINTS), dev)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    train_step = make_train_step()
+    state, _ = train_step(state, train_batch, generator)  # warm-up
+    rb_counted(TRAIN_PATH, lambda: train_step(state, train_batch, generator), records)
+    del state, model, train_batch
+    for path, (_, rec) in records.items():
+        rb_books_against_twins(path, rec)
+        rb_sync_guard(path, rec)
+    rows = {tag: [] for _, tag, _ in RB_KERNELS}
+    errs = {tag: 0.0 for _, tag, _ in RB_KERNELS}
+    for path, (_, rec) in records.items():
+        for tag, calls in rec.calls.items():
+            for args in calls:
+                out, err = rb_check(tag, args)
+                errs[tag] = max(errs[tag], err)
+                if path == RB_MAIN_PATH:
+                    row = rb_timed(tag, args, out)
+                    rows[tag].append(row)
+                    print(f"{tag} at {rb_describe(tag, args)}: launch {row['ms']:.4f} ms "
+                          f"(median of {RB_TIMED_REPS}, device), wrapper {row['wrapper_ms']:.4f} "
+                          f"ms of host a call, plain {row['plain_ms']:.4f} ms; bound "
+                          f"{row['bound_ms']:.5f} ms by bytes ({row['nbytes'] / 1e6:.3f} MB)",
+                          flush=True)
+        print(f"B1 kernels, {path}: {sum(map(len, rec.calls.values()))} calls equal to their "
+              f"plain versions", flush=True)
+    kernels = []
+    for i, (name, tag, replaces) in enumerate(RB_KERNELS):
+        mine = rows[tag]
+        kernels.append({
+            "name": name, "path": RB_MAIN_PATH, "route": "cuda", "source": RB_SRC,
+            "replaces": replaces, "launches": records[RB_MAIN_PATH][0][i], "max_abs_err": errs[tag],
+            "ms": sum(r["ms"] for r in mine), "wrapper_ms": sum(r["wrapper_ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": sum(r["bound_ms"] for r in mine), "bound_by": "bytes",
+            "library_ms": None, "launches_by_path": {p: r[0][i] for p, r in records.items()}})
+        print(f"{tag} ({name}) over the main path's {len(mine)} calls: launch "
+              f"{kernels[-1]['ms']:.4f} ms, wrapper {kernels[-1]['wrapper_ms']:.4f} ms, plain "
+              f"{kernels[-1]['plain_ms']:.4f} ms, bound {kernels[-1]['bound_ms']:.5f} ms ({card})",
+              flush=True)
+    print(f"B1 phase: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return kernels
+
+
+def path_times(dev, card):
+    """``--path-times``: the predict of each tail (batch 1; frames/s over
+    ``RB_PATH_LOOPS`` loops, the stage ms of ``stage_breakdown``, medians of
+    5, device busy ms and idle share) and the training step (batch 2,
+    ``mm=True``; ms over ``RB_PATH_LOOPS`` steps, busy ms). It needs nothing
+    of kernels B1a-B2, so it runs in the parent tree too."""
+    pts, valid = make_lidar_frame(np.random.default_rng(0), N_POINTS)
+    batch = {"points": torch.from_numpy(pts)[None].to(dev),
+             "points_valid": torch.from_numpy(valid)[None].to(dev)}
+    for dense in (True, False):
+        what = f"predict, {'dense' if dense else 'sparse'} tail"
+        model = seeded_model(dict(BENCH, dense_tail=dense), 0, dev)
+        with torch.no_grad():
+            for _ in range(2):
+                model.predict(batch)
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(RB_PATH_LOOPS):
+                t0 = time.perf_counter()
+                model.predict(batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            stages = [stage_breakdown(model, batch) for _ in range(5)]
+            busy, idle = device_profile(lambda: model.predict(batch), what,
+                                        statistics.median(ms))
+        books = sorted(s["rulebooks"] for s in stages)
+        print(f"path times, {what}: {statistics.median(ms):.2f} ms a frame (min {min(ms):.2f}, "
+              f"max {max(ms):.2f}, {RB_PATH_LOOPS} loops); rulebooks stage "
+              f"{statistics.median(books):.2f} ms (min {books[0]:.2f}, max {books[-1]:.2f}; "
+              f"stage medians: " + ", ".join(f"{k} {statistics.median(s[k] for s in stages):.2f}"
+                                             for k in stages[0])
+              + f"); busy {busy:.2f} ms, idle share {idle:.3f} ({card})", flush=True)
+        del model
+    model = VoxelRCNN(**dict(BENCH, mm=True))
+    model.load_state_dict(seeded_state_dict(model, 0), strict=True)
+    state = init_state(model, OPT_CFG, total_steps=100, device=dev)
+    train_batch = to_device(make_train_batch(0, TRAIN_BATCH, N_POINTS), dev)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    train_step = make_train_step()
+    for _ in range(2):
+        state, _ = train_step(state, train_batch, generator)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(RB_PATH_LOOPS):
+        t0 = time.perf_counter()
+        state, _ = train_step(state, train_batch, generator)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    busy, idle = device_profile(lambda: train_step(state, train_batch, generator), "train step",
+                                statistics.median(ms), loops=1)
+    print(f"path times, {TRAIN_PATH}: {statistics.median(ms):.2f} ms a step (min {min(ms):.2f}, "
+          f"max {max(ms):.2f}, {RB_PATH_LOOPS} steps); busy {busy:.2f} ms, idle share "
+          f"{idle:.3f} ({card})", flush=True)
+
+
+def rulebook_paths(dev, card):
+    """``--rulebooks``: phase 23 on its own models, then ``path_times``."""
+    pts, valid = make_lidar_frame(np.random.default_rng(0), N_POINTS)
+    batch = {"points": torch.from_numpy(pts)[None].to(dev),
+             "points_valid": torch.from_numpy(valid)[None].to(dev)}
+    dense_model = seeded_model(dict(BENCH, dense_tail=True), 0, dev)
+    sparse_model = seeded_model(BENCH, 0, dev)
+    kernels = rulebook_phase(dev, card, batch, dense_model, sparse_model)
+    del dense_model, sparse_model
+    torch.cuda.empty_cache()
+    path_times(dev, card)
+    return kernels
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     parser.add_argument("--determinism", type=int, metavar="RUNS",
@@ -4883,6 +5257,13 @@ def main():
     parser.add_argument("--parity", action="store_true",
                         help="run only phases 20 (bench-scale parity against the committed JAX "
                              "reference) and 21 (dense-tail training), after the build")
+    parser.add_argument("--rulebooks", action="store_true",
+                        help="run only phase 23 (kernels B1a, B1b and B2 on the paths that "
+                             "build rulebooks) and the path times, after the build, and print "
+                             "their kernels line")
+    parser.add_argument("--path-times", action="store_true",
+                        help="run only the path times (both predicts' stage ms, busy ms and "
+                             "idle share, the train step's ms and busy ms), after the build")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -4926,6 +5307,14 @@ def main():
         print(json.dumps({"kernels": dense_training_phase(dev, card)}))
         print(f"total {time.perf_counter() - t_start:.1f} s")
         return
+    if args.rulebooks:
+        print(json.dumps({"kernels": rulebook_paths(dev, card)}))
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.path_times:
+        path_times(dev, card)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        return
     kernel_resource_lines()
 
     src = "cpd_tpu_torch/csrc/gather_gemm.cu"
@@ -4957,6 +5346,7 @@ def main():
     kernels.append(kernel_entry("gather_gemm", "predict, dense tail", src,
                                 "cpd_tpu/ops/pallas_conv.py:77", launches, max_err, shape_times))
     compare_tails(sparse_model, dense_model, batch)
+    kernels += rulebook_phase(dev, card, batch, dense_model, sparse_model)
     del sparse_model, dense_model, batch
     torch.cuda.empty_cache()
 

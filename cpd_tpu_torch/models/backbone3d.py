@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import rulebook as stage_tables
 from ..ops import sparse
 from ..ops.sparse import GridSpec, Rulebook
 from .norm import MaskedBatchNorm
@@ -65,7 +66,7 @@ def _dense_conv(features, w_taps, ctx: DenseCtx, compute_dtype):
 def _downsample_mask(mask, kernel_xyz, stride_xyz, pad_xyz):
     """Occupancy of a strided conv's output sites: every output cell whose
     receptive field touches an occupied input (SparseConv3d's active-set
-    rule, ``sparse._strided_out_keys``). mask: (B, D, H, W) bool."""
+    rule, ``ops/rulebook.py::downsample``). mask: (B, D, H, W) bool."""
     out = F.max_pool3d(mask[:, None].float(), kernel_xyz[::-1], stride_xyz[::-1], pad_xyz[::-1])
     return out[:, 0] > 0
 
@@ -88,25 +89,49 @@ def build_branch_rulebooks(keys, grid: GridSpec, caps, with_transpose: bool = Fa
     copy of the submanifold rulebook. ``with_conv_out=False`` (the light
     branch) leaves out ``conv_out`` and its transpose. ``dense_tail`` stops
     after stage 3: stage 4 and ``conv_out`` run as dense convs and need no
-    rulebook."""
+    rulebook.
+
+    CUDA keys take one occupancy table a stage (``ops/rulebook.py``) and
+    every book from it: the stage-0 table once from ``keys`` (kernel B1a),
+    each later stage's from the strided conv's output set (B2, truncated to
+    the cap), one lookup launch a book (B1b), all samples at once and no host
+    sync. CPU keys take the plain twins of ``ops/sparse.py``."""
+    return _branch_rulebooks(keys, grid, caps, with_transpose, with_conv_out, dense_tail,
+                             tables=keys.is_cuda)
+
+
+def _branch_rulebooks(keys, grid: GridSpec, caps, with_transpose=False, with_conv_out=True,
+                      dense_tail=False, *, tables: bool):
+    """``build_branch_rulebooks`` on stage tables (``tables``; for CPU keys
+    their wrappers compute the kernels' plain versions) or on the plain
+    twins."""
     g = stage_grids(grid)
     downs = (("down2", "x_conv1", "x_conv2", (3, 3, 3), (2, 2, 2), (1, 1, 1)),
              ("down3", "x_conv2", "x_conv3", (3, 3, 3), (2, 2, 2), (1, 1, 1)),
              ("down4", "x_conv3", "x_conv4", (3, 3, 3), (2, 2, 2), (1, 1, 0)),
              ("conv_out", "x_conv4", "encoded", (1, 1, 3), (1, 1, 2), (0, 0, 0)))
+    keys = keys.contiguous()
+    table = stage_tables.stage_table(keys, g["x_conv1"]) if tables else None
     rbs = {}
     for stage, (name, g_in, g_out, kernel, stride, padding) in enumerate(downs):
         subm = f"subm{stage + 1}"
-        rbs[subm] = sparse.build_subm_rulebook_batched(keys, g[g_in])
+        rbs[subm] = (stage_tables.subm_rulebook(keys, table) if tables
+                     else sparse.subm_rulebook_reference(keys, g[g_in]))
         if with_transpose:
             rbs[subm + "_T"] = sparse.mirror_rulebook(rbs[subm])
         if (name == "conv_out" and not with_conv_out) or (name == "down4" and dense_tail):
             break
-        rbs[name], _ = sparse.build_conv_rulebook_batched(
-            keys, g[g_in], kernel, stride, padding, caps[stage])
+        if tables:
+            rbs[name], table = stage_tables.conv_rulebook(table, kernel, stride, padding,
+                                                          caps[stage])
+        else:
+            rbs[name], _ = sparse.conv_rulebook_reference(keys, g[g_in], kernel, stride, padding,
+                                                          caps[stage])
         if with_transpose:
-            rbs[name + "_T"] = sparse.build_inverse_rulebook_batched(
-                keys, rbs[name].out_keys, g[g_in], g[g_out], kernel, stride, padding)
+            rbs[name + "_T"] = (
+                stage_tables.inverse_rulebook(keys, g[g_in], table, kernel, stride, padding)
+                if tables else sparse.inverse_rulebook_reference(
+                    keys, rbs[name].out_keys, g[g_in], g[g_out], kernel, stride, padding))
         keys = rbs[name].out_keys
     return rbs
 

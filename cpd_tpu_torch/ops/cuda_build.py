@@ -25,7 +25,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 KERNELS = ("gather_gemm", "gather_gemm_dw", "gather_gemm_flat", "gather_gemm_per_tap",
            "lane_gather_gemm", "lane_gather", "radius_count", "dbscan", "farthest_point_sample",
-           "nms_bev")
+           "nms_bev", "rulebook")
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in KERNELS}
 # headers that the sources include (part of every library's key)
 HEADERS = (_PKG / "csrc" / "gather_common.cuh", _PKG / "csrc" / "lane_common.cuh",

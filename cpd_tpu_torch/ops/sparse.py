@@ -3,10 +3,14 @@ cpd_tpu/ops/sparse.py).
 
 A sparse tensor is (features (V_cap, C), keys (V_cap,)) with int32
 linearized zyx keys ((z * ny) + y) * nx + x, SORTED ascending, padding slots
-set to INT32_MAX at the end. A row's index is its key's rank, so every
-neighbour lookup is one ``torch.searchsorted`` over the sorted keys: the one
-formulation this port uses (the JAX package's bitmap LUTs, rank-joins and
-gather-mode variants are TPU lowering workarounds).
+set to INT32_MAX at the end. A row's index is its key's rank. On the card
+the rulebook builders run kernels B1a, B1b and B2 (``ops/rulebook.py``: one
+occupancy bitmap a stage, popcount-rank lookups, the strided output set by
+receptive-field OR and rank compaction; no host sync). On the CPU they run
+their plain versions, the oracle of those kernels: every neighbour lookup
+one ``torch.searchsorted`` over the sorted keys, a strided output set one
+sorted ``torch.unique``, one sample at a time (the JAX package's rank-joins
+and gather-mode variants are TPU lowering workarounds).
 
 A ``Rulebook`` holds, per output row and kernel tap, the input row to gather
 (``idx``) and whether it exists (``found``); ``idx`` is 0 where ``found`` is
@@ -98,8 +102,9 @@ def _kernel_offsets(kernel: Tuple[int, int, int]):
     return [(dz, dy, dx) for dz in range(kz) for dy in range(ky) for dx in range(kx)]
 
 
-def build_subm_rulebook(keys, grid: GridSpec, kernel=(3, 3, 3)) -> Rulebook:
-    """Submanifold rulebook: output sites == input sites. keys: (V,) sorted."""
+def _subm_rulebook_plain(keys, grid: GridSpec, kernel=(3, 3, 3)) -> Rulebook:
+    """One sample's submanifold rulebook, plain: output sites == input
+    sites. keys: (V,) sorted."""
     kx, ky, kz = kernel
     valid = keys != INVALID_KEY
     coords = coords_from_keys(keys.long(), grid)
@@ -143,11 +148,9 @@ def _strided_out_keys(keys, grid: GridSpec, out_grid: GridSpec, kernel, stride,
     return out_keys.to(torch.int32), out_keys != INVALID_KEY
 
 
-def build_conv_rulebook(keys, grid: GridSpec, kernel, stride, padding,
-                        out_cap: int) -> Tuple[Rulebook, GridSpec]:
-    """Strided (non-submanifold) rulebook, SparseConv3d semantics.
-    kernel/stride/padding are (x, y, z) tuples."""
-    out_grid = grid.downsample(stride, padding, kernel)
+def _conv_rulebook_plain(keys, grid: GridSpec, out_grid: GridSpec, kernel, stride, padding,
+                         out_cap: int) -> Rulebook:
+    """One sample's strided rulebook, plain."""
     out_keys, out_valid = _strided_out_keys(keys, grid, out_grid, kernel, stride,
                                             padding, out_cap)
     oc = coords_from_keys(out_keys.long(), out_grid)  # (Vo, 3) zyx
@@ -158,32 +161,12 @@ def build_conv_rulebook(keys, grid: GridSpec, kernel, stride, padding,
     ic = origin[:, None, :] + offs[None, :, :]  # (Vo, K, 3) input zyx
     idx, found = lookup(keys, ic[..., 0], ic[..., 1], ic[..., 2], grid,
                         out_valid[:, None].expand(-1, offs.shape[0]))
-    return Rulebook(idx, found, out_keys, out_valid), out_grid
+    return Rulebook(idx, found, out_keys, out_valid)
 
 
-def _stack_books(books) -> Rulebook:
-    return Rulebook(*(torch.stack(f) for f in zip(*books)))
-
-
-def build_subm_rulebook_batched(keys, grid: GridSpec, kernel=(3, 3, 3)) -> Rulebook:
-    """build_subm_rulebook over a leading batch axis of keys (B, V)."""
-    return _stack_books([build_subm_rulebook(k, grid, kernel) for k in keys])
-
-
-def build_conv_rulebook_batched(keys, grid: GridSpec, kernel, stride, padding, out_cap):
-    """build_conv_rulebook over a leading batch axis -> (Rulebook, out_grid)."""
-    outs = [build_conv_rulebook(k, grid, kernel, stride, padding, out_cap) for k in keys]
-    return _stack_books([rb for rb, _ in outs]), grid.downsample(stride, padding, kernel)
-
-
-def build_inverse_rulebook(in_keys, out_keys, grid: GridSpec, out_grid: GridSpec,
-                           kernel, stride, padding) -> Rulebook:
-    """Transpose of a strided-conv rulebook, tap-aligned: for input row u and
-    tap k, ``idx[u, k]`` is the OUTPUT row v whose forward rulebook has
-    ``idx[v, k] == u`` (output site (u + p - tap_k) / s where that divides),
-    so dX[u] = sum_k found[u, k] * dY[idx[u, k]] @ W[k]^T is a gather-GEMM.
-    in_keys (V_in,), out_keys (V_out,), both sorted; kernel/stride/padding
-    are (x, y, z) tuples."""
+def _inverse_rulebook_plain(in_keys, out_keys, grid: GridSpec, out_grid: GridSpec,
+                            kernel, stride, padding) -> Rulebook:
+    """One sample's transpose of a strided rulebook, plain."""
     valid = in_keys != INVALID_KEY
     coords = coords_from_keys(in_keys.long(), grid)  # (V, 3) zyx
     dev = in_keys.device
@@ -197,11 +180,84 @@ def build_inverse_rulebook(in_keys, out_keys, grid: GridSpec, out_grid: GridSpec
     return Rulebook(idx, found, in_keys, valid)
 
 
+def _stack_books(books) -> Rulebook:
+    return Rulebook(*(torch.stack(f) for f in zip(*books)))
+
+
+def subm_rulebook_reference(keys, grid: GridSpec, kernel=(3, 3, 3)) -> Rulebook:
+    """Plain version of ``build_subm_rulebook_batched`` on any device: one
+    ``searchsorted`` lookup a sample."""
+    return _stack_books([_subm_rulebook_plain(k, grid, kernel) for k in keys])
+
+
+def conv_rulebook_reference(keys, grid: GridSpec, kernel, stride, padding, out_cap):
+    """Plain version of ``build_conv_rulebook_batched`` on any device: a
+    sorted ``unique`` and a ``searchsorted`` lookup a sample."""
+    out_grid = grid.downsample(stride, padding, kernel)
+    return _stack_books([_conv_rulebook_plain(k, grid, out_grid, kernel, stride, padding,
+                                              out_cap) for k in keys]), out_grid
+
+
+def inverse_rulebook_reference(in_keys, out_keys, grid: GridSpec, out_grid: GridSpec,
+                               kernel, stride, padding) -> Rulebook:
+    """Plain version of ``build_inverse_rulebook_batched`` on any device."""
+    return _stack_books([_inverse_rulebook_plain(i, o, grid, out_grid, kernel, stride, padding)
+                         for i, o in zip(in_keys, out_keys)])
+
+
+def build_subm_rulebook_batched(keys, grid: GridSpec, kernel=(3, 3, 3)) -> Rulebook:
+    """Submanifold rulebook (SubMConv3d semantics: output sites == input
+    sites) of (B, V) sorted keys: kernels B1a and B1b for CUDA keys, the
+    plain version for CPU keys (``ops/rulebook.py`` dispatches)."""
+    return stage_tables.subm_rulebook_from_keys(keys, grid, kernel)
+
+
+def build_conv_rulebook_batched(keys, grid: GridSpec, kernel, stride, padding, out_cap):
+    """Strided (non-submanifold) rulebook, SparseConv3d semantics, of (B, V)
+    sorted keys -> (Rulebook, out_grid); kernel/stride/padding are (x, y, z)
+    tuples. Kernels B1a, B2 and B1b for CUDA keys, the plain version for CPU
+    keys (``ops/rulebook.py`` dispatches)."""
+    return stage_tables.conv_rulebook_from_keys(keys, grid, kernel, stride, padding, out_cap)
+
+
 def build_inverse_rulebook_batched(in_keys, out_keys, grid: GridSpec, out_grid: GridSpec,
                                    kernel, stride, padding) -> Rulebook:
-    """build_inverse_rulebook over a leading batch axis of both key arrays."""
-    return _stack_books([build_inverse_rulebook(i, o, grid, out_grid, kernel, stride, padding)
-                         for i, o in zip(in_keys, out_keys)])
+    """Transpose of a strided-conv rulebook, tap-aligned, over a leading
+    batch axis: for input row u and tap k, ``idx[u, k]`` is the OUTPUT row v
+    whose forward rulebook has ``idx[v, k] == u`` (output site (u + p -
+    tap_k) / s where that divides), so dX[u] = sum_k found[u, k] *
+    dY[idx[u, k]] @ W[k]^T is a gather-GEMM. in_keys (B, V_in), out_keys
+    (B, V_out), both sorted; kernel/stride/padding are (x, y, z) tuples.
+    Kernels B1a and B1b for CUDA keys, the plain version for CPU keys
+    (``ops/rulebook.py`` dispatches)."""
+    return stage_tables.inverse_rulebook_from_keys(in_keys, out_keys, grid, out_grid, kernel,
+                                                   stride, padding)
+
+
+def _first(book: Rulebook) -> Rulebook:
+    return Rulebook(*(f[0] for f in book))
+
+
+def build_subm_rulebook(keys, grid: GridSpec, kernel=(3, 3, 3)) -> Rulebook:
+    """One sample's ``build_subm_rulebook_batched``: keys (V,) sorted."""
+    return _first(build_subm_rulebook_batched(keys[None], grid, kernel))
+
+
+def build_conv_rulebook(keys, grid: GridSpec, kernel, stride, padding,
+                        out_cap: int) -> Tuple[Rulebook, GridSpec]:
+    """One sample's ``build_conv_rulebook_batched``: keys (V,) sorted ->
+    (Rulebook, out_grid)."""
+    book, out_grid = build_conv_rulebook_batched(keys[None], grid, kernel, stride, padding,
+                                                 out_cap)
+    return _first(book), out_grid
+
+
+def build_inverse_rulebook(in_keys, out_keys, grid: GridSpec, out_grid: GridSpec,
+                           kernel, stride, padding) -> Rulebook:
+    """One sample's ``build_inverse_rulebook_batched``: in_keys (V_in,),
+    out_keys (V_out,)."""
+    return _first(build_inverse_rulebook_batched(in_keys[None], out_keys[None], grid, out_grid,
+                                                 kernel, stride, padding))
 
 
 def mirror_rulebook(rulebook: Rulebook) -> Rulebook:
@@ -352,3 +408,7 @@ def sparse_conv_apply(features, rulebook: Rulebook, weights, bias=None, compute_
     if bias is not None:
         out = out + bias
     return torch.where(rulebook.out_valid[:, None], out, 0.0)
+
+
+# last: ops/rulebook.py imports this module's names above
+from . import rulebook as stage_tables  # noqa: E402

@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card (marker ``cuda``): kernels A1, A2,
-G1-G4, R1, R2, F1 and B4a-c have no CPU or interpret mode. They skip without a card. This file
-imports no JAX, so it also runs where JAX is not installed:
+G1-G4, R1, R2, F1, B4a-c, B1a, B1b and B2 have no CPU or interpret mode.
+They skip without a card. This file imports no JAX, so it also runs where JAX
+is not installed:
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda
 """
@@ -937,6 +938,7 @@ def test_dbscan_kernel_matches_plain(cuda, case):
         out, again = run(), run()
     torch.cuda.synchronize()
     del hog
+    torch.cuda.empty_cache()  # give the card back: later tests start processes on it
     assert listed == [case != "walk"] * 2
     assert dbscan_labels.launches - before[0] == 2
     assert dbscan_labels_batched.launches - before[1] == (2 if case == "segments" else 0)
@@ -1243,3 +1245,142 @@ def test_nms_kernels_reject_wrong_operands(cuda):
                          torch.ones(1, 8, dtype=torch.bool, device=cuda))
     with pytest.raises(ValueError):
         iou3d.pairwise_overlap_bev(boxes, torch.zeros(1, 8, 7))
+
+
+RULEBOOK_GEOMETRIES = (((3, 3, 3), (2, 2, 2), (1, 1, 1)), ((3, 3, 3), (2, 2, 2), (1, 1, 0)),
+                       ((1, 1, 3), (1, 1, 2), (0, 0, 0)))
+BENCH_CAPS = (80_000, 48_000, 24_000, 20_000)
+
+
+def _rulebook_keys(grid, counts, cap, seed):
+    """(B, cap) sorted unique int32 keys, the grid's 8 corners among them,
+    INVALID_KEY padding; ``counts`` a sample (0: an empty one)."""
+    rng = np.random.default_rng(seed)
+    corners = np.unique([(z * grid.ny + y) * grid.nx + x for z in (0, grid.nz - 1)
+                         for y in (0, grid.ny - 1) for x in (0, grid.nx - 1)])
+    rest = np.setdiff1d(np.arange(grid.num_cells), corners)
+    out = np.full((len(counts), cap), sparse.INVALID_KEY, np.int32)
+    for b, n in enumerate(counts):
+        if n:
+            out[b, :n] = np.sort(np.concatenate([corners, rng.choice(rest, n - 8, replace=False)]))
+    return torch.from_numpy(out)
+
+
+def _assert_same_book(got, want, what):
+    """Integers exactly: found, idx where found, out_keys, out_valid."""
+    assert torch.equal(got.found.cpu(), want.found.cpu()), f"{what}: found"
+    assert torch.equal(got.idx.cpu()[got.found.cpu()], want.idx.cpu()[want.found.cpu()]), \
+        f"{what}: idx"
+    assert torch.equal(got.out_keys.cpu(), want.out_keys.cpu()), f"{what}: out_keys"
+    assert torch.equal(got.out_valid.cpu(), want.out_valid.cpu()), f"{what}: out_valid"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,counts", [(13, (320, 0, 160)), (32, (283,)), (33, (320, 0, 160)),
+                                       (70, (320, 200, 0, 17)), (1504, (40_000, 25_000))])
+def test_rulebook_kernels_equal_plain(cuda, nx, counts):
+    """B1a, B1b (subm, strided, inverse) and B2 against their plain versions
+    on the same operands, and the books against the plain twins of
+    ``ops/sparse.py``: x extents with and without padding bits, empty
+    samples and one without a padding slot, caps above and below the
+    occupancy (the truncated output table as B1a builds it from the output
+    keys), down4's padding (1, 1, 0) and conv_out's K = 3; each wrapper
+    counts its calls."""
+    from cpd_tpu_torch.ops import rulebook
+    grid = sparse.GridSpec(nx, 41 if nx > 100 else 9, 41 if nx > 100 else 7)
+    keys = _rulebook_keys(grid, counts, max(counts), nx).to(cuda)
+    before = (rulebook.stage_table.launches, rulebook.lookup_taps.launches,
+              rulebook.downsample.launches)
+    table = rulebook.stage_table(keys, grid)
+    plain = rulebook.stage_table_reference(keys, grid)
+    assert torch.equal(table.words, plain.words) and torch.equal(table.prefix, plain.prefix)
+    _assert_same_book(rulebook.subm_rulebook(keys, table),
+                      sparse.subm_rulebook_reference(keys, grid), "subm")
+    for geom in RULEBOOK_GEOMETRIES:
+        for cap in (4 * max(counts), max(counts) // 5):
+            book, out_table = rulebook.conv_rulebook(table, *geom, cap)
+            twin, out_grid = sparse.conv_rulebook_reference(keys, grid, *geom, cap)
+            _assert_same_book(book, twin, f"{geom} cap {cap}")
+            plain_table, plain_keys, plain_valid = rulebook.downsample_reference(table, *geom, cap)
+            assert torch.equal(out_table.words, plain_table.words)
+            assert torch.equal(out_table.prefix, plain_table.prefix)
+            assert torch.equal(book.out_keys, plain_keys) and torch.equal(book.out_valid,
+                                                                          plain_valid)
+            again = rulebook.stage_table(book.out_keys, out_grid)
+            assert torch.equal(again.words, out_table.words)
+            assert torch.equal(again.prefix, out_table.prefix)
+            for mode, rows, row_grid, tab in ((rulebook.STRIDED, book.out_keys, out_grid, table),
+                                              (rulebook.INVERSE, keys, grid, out_table)):
+                got = rulebook.lookup_taps(rows, row_grid, tab, mode, *geom)
+                want = rulebook.lookup_taps_reference(rows, row_grid, tab, mode, *geom)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (geom, cap, mode)
+            _assert_same_book(rulebook.inverse_rulebook(keys, grid, out_table, *geom),
+                              sparse.inverse_rulebook_reference(keys, twin.out_keys, grid,
+                                                                out_grid, *geom),
+                              f"{geom} cap {cap}, inverse")
+    convs = 2 * len(RULEBOOK_GEOMETRIES)  # a table, 4 lookups and an output set a conv
+    assert (rulebook.stage_table.launches - before[0], rulebook.lookup_taps.launches - before[1],
+            rulebook.downsample.launches - before[2]) == (1 + convs, 1 + 4 * convs, convs)
+
+
+def _bench_keys(cuda, samples=1):
+    """The voxel keys of the bench frame(s) (200k points, the bench
+    configuration's voxelizer and grid)."""
+    from cpd_tpu_torch.models.detector import keys_from_frame
+    spec = VoxelizerSpec.create((-75.2, -75.2, -2.0, 75.2, 75.2, 4.0), (0.1, 0.1, 0.15), 90_000)
+    frames = [make_lidar_frame(np.random.default_rng(s), 200_000) for s in range(samples)]
+    points = torch.from_numpy(np.stack([p for p, _ in frames])).to(cuda)
+    valid = torch.from_numpy(np.stack([v for _, v in frames])).to(cuda)
+    nx, ny, nz = spec.grid_size
+    grid = sparse.GridSpec(nx, ny, nz + 1)
+    return keys_from_frame(voxelize_batch(points, spec, valid), grid), grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples,kw", [(1, {"dense_tail": True}), (1, {}),
+                                        (2, {"with_transpose": True}),
+                                        (2, {"with_transpose": True, "with_conv_out": False})])
+def test_branch_rulebooks_on_the_bench_frame_equal_the_plain_twins(cuda, samples, kw):
+    """Every book of the bench frame's branch (both tails, the train step's
+    transposes, the light branch) on the card (one B1a, a B2 a strided conv,
+    a B1b a book) equals the plain twins on the CPU."""
+    from cpd_tpu_torch.ops import rulebook
+    keys, grid = _bench_keys(cuda, samples)
+    before = rulebook.lookup_taps.launches
+    got = backbone3d.build_branch_rulebooks(keys, grid, BENCH_CAPS, **kw)
+    want = backbone3d.build_branch_rulebooks(keys.cpu(), grid, BENCH_CAPS, **kw)
+    assert set(got) == set(want)
+    for name in want:
+        _assert_same_book(got[name], want[name], name)
+    assert rulebook.lookup_taps.launches - before == sum(not n.startswith("subm") or
+                                                         not n.endswith("_T") for n in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"dense_tail": True}, {}, {"with_transpose": True}])
+def test_branch_rulebooks_do_not_synchronise(cuda, kw):
+    """After one warm-up call (the kernels' build and load), the card's
+    books take no host sync: no read, no ``unique``, no blocking copy."""
+    keys, grid = _bench_keys(cuda, 2 if kw.get("with_transpose") else 1)
+    backbone3d.build_branch_rulebooks(keys, grid, BENCH_CAPS, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        books = backbone3d.build_branch_rulebooks(keys, grid, BENCH_CAPS, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(books["subm1"].found.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_rulebook_kernels_reject_wrong_operands(cuda):
+    from cpd_tpu_torch.ops import rulebook
+    grid = sparse.GridSpec(40, 8, 8)
+    keys = _rulebook_keys(grid, (30,), 32, 0).to(cuda)
+    table = rulebook.stage_table(keys, grid)
+    with pytest.raises(ValueError):  # mixed devices
+        rulebook.lookup_taps(keys.cpu(), grid, table, rulebook.SUBM, (3, 3, 3))
+    with pytest.raises(ValueError):  # not contiguous
+        rulebook.stage_table(torch.cat([keys, keys]).T.contiguous().T, grid)
+    with pytest.raises(TypeError):
+        rulebook.stage_table(keys.long(), grid)
